@@ -1,0 +1,20 @@
+"""DBRX (132B): 16-expert top-4 fine-grained MoE on every layer.
+[hf:databricks/dbrx-base; unverified]
+"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b",
+    family="moe",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=10752,
+    vocab_size=100352,
+    moe=MoEConfig(num_experts=16, top_k=4, period=1),
+    rope_theta=5e5,
+    max_position=32768,
+    source="hf:databricks/dbrx-base; unverified",
+)

@@ -1,0 +1,63 @@
+"""Public kernel ops: the CUDA kernel for CUDA tensors, the plain PyTorch
+version for CPU tensors (the twin of ``src/repro/kernels/ops.py``).
+
+``force`` overrides: "kernel" (raises for a CPU tensor: a CUDA kernel has
+no CPU mode), "ref" (the plain version on any device), None (by device).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import kv_copy as _copy
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ref as ref_ops
+
+_MODULES = {"flash_attention": _flash, "kv_copy": _copy,
+            "paged_attention": _paged}
+
+
+def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
+    if force not in (None, "kernel", "ref"):
+        raise ValueError(f"force must be 'kernel', 'ref' or None, got {force!r}")
+    if force == "kernel" and not t.is_cuda:
+        raise ValueError(f"force='kernel' needs CUDA tensors, got {t.device}")
+    return force == "kernel" or (force is None and t.is_cuda)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: Optional[int] = None,
+                    force: Optional[str] = None):
+    if _use_kernel(q, force):
+        return _flash.flash_attention_kernel(q, k, v, causal=causal,
+                                             window=window, q_offset=q_offset)
+    return ref_ops.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+
+
+def paged_attention(q, kv_pool, block_tables, context_lens, *,
+                    layer: int = -1, force: Optional[str] = None):
+    if _use_kernel(q, force):
+        return _paged.paged_attention_kernel(q, kv_pool, block_tables,
+                                             context_lens, layer=layer)
+    return ref_ops.paged_attention_ref(q, kv_pool, block_tables, context_lens,
+                                       layer=layer)
+
+
+def kv_copy(pool, src, dst, *, force: Optional[str] = None):
+    """In place; returns ``pool``."""
+    if _use_kernel(pool, force):
+        return _copy.kv_copy(pool, src, dst)
+    return ref_ops.kv_copy_ref(pool, src, dst)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, by kernel."""
+    return {name: mod.launches for name, mod in _MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,95 @@
+"""Plain PyTorch versions of every kernel: the CPU path and the ground truth
+the CUDA kernels are held against (``src/repro/kernels/ref.py``'s twins).
+
+Each computes in fp32 and casts back to the input dtype, like the oracles
+of the JAX package. ``paged_attention_ref`` also reads the layered pool
+(``layer=``), and ``flash_attention_ref`` takes ``q_offset`` and native GQA
+(k/v carry ``Hkv`` heads), so together they compute what the paged runner
+calls on its main path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: Optional[int] = None,
+                        kv_len: Optional[int] = None,
+                        softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), H a multiple of Hkv (query
+    head h reads kv head h // (H // Hkv)). Full materialized attention in
+    fp32 -> (B, Sq, H, D).
+
+    Query row i sits at absolute position ``q_offset + i`` in the kv stream;
+    ``q_offset=None`` aligns the queries to the kv tail (``Skv - Sq``), as
+    the JAX oracle does. A row that sees no key (possible only with a
+    window, or with queries past ``Skv``) returns zeros.
+    """
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    off = Skv - Sq if q_offset is None else q_offset
+    scale = D ** -0.5 if softmax_scale is None else softmax_scale
+    kf = k.float().repeat_interleave(H // Hkv, dim=2)
+    vf = v.float().repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    qpos = off + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = kpos < (Skv if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1) * mask.any(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return out.to(q.dtype)
+
+
+def paged_attention_ref(q: torch.Tensor, kv_pool: torch.Tensor,
+                        block_tables: torch.Tensor,
+                        context_lens: torch.Tensor, *,
+                        layer: int = -1) -> torch.Tensor:
+    """Decode attention over a block-first paged pool.
+
+    q: (B, H, D); kv_pool: (NB, 2, P, Hkv, D), or the layered
+    (NB, L, 2, P, Hkv, D) with ``layer >= 0``; block_tables: (B, MB) int32;
+    context_lens: (B,) -> (B, H, D).
+    """
+    B, H, D = q.shape
+    MB = block_tables.shape[1]
+    rows = block_tables.reshape(-1).long()
+    kv = kv_pool[rows, layer] if layer >= 0 else kv_pool[rows]
+    _, _, P, Hkv, _ = kv.shape                 # (B*MB, 2, P, Hkv, D)
+    k = kv[:, 0].reshape(B, MB * P, Hkv, D).float()
+    v = kv[:, 1].reshape(B, MB * P, Hkv, D).float()
+    qg = q.reshape(B, Hkv, H // Hkv, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) / (D ** 0.5)
+    pos = torch.arange(MB * P, device=q.device)[None]
+    valid = (pos < context_lens.to(q.device)[:, None].long())[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def kv_copy_ref(pool: torch.Tensor, src, dst, n_valid=None) -> torch.Tensor:
+    """Batched block rotation, in place: pool[dst[i]] = pool[src[i]] for
+    i < n_valid. pool: (NB, ...); src/dst: (N,) int32 (numpy or tensor).
+    Entries with i >= n_valid, or src[i] < 0, are no-ops and write nothing.
+    Every source row is read before any destination is written. Returns
+    ``pool``."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    valid = np.arange(len(src)) < (len(src) if n_valid is None else n_valid)
+    valid &= src >= 0
+    if valid.any():
+        s = torch.from_numpy(src[valid]).to(pool.device)
+        d = torch.from_numpy(dst[valid]).to(pool.device)
+        pool[d] = pool[s]
+    return pool

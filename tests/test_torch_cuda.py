@@ -1,0 +1,139 @@
+"""The CUDA kernels against their plain PyTorch versions over a sweep of
+small shapes, and the paged runner on the card against itself on the CPU.
+These need a CUDA card (nvcc builds the kernels at first use); without one
+every test here skips. On the card:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
+
+``chip_smoke.py`` checks the same kernels at llama3-8b's full widths.
+Tolerance: fp32 atol=rtol=1e-5; bf16 atol=rtol=2e-2 (output rounding).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.fixture(scope="module")
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,D,P,MB,L", [
+    (3, 4, 2, 16, 4, 6, 4),        # the reduced llama the runner serves
+    (2, 8, 8, 32, 8, 3, 0),        # MHA, flat pool
+    (5, 8, 1, 64, 16, 5, 2),       # MQA
+    (4, 16, 2, 128, 32, 2, 1),     # group of 8, 32-token blocks
+])
+def test_paged_attention_kernel(gen, dtype, B, H, Hkv, D, P, MB, L):
+    NB = B * MB + 2
+    lead = (NB, L) if L else (NB,)
+    q = randn(gen, (B, H, D), dtype)
+    pool = randn(gen, lead + (2, P, Hkv, D), dtype)
+    bt = torch.randint(0, NB - 1, (B, MB), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cl = torch.randint(1, MB * P + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    bt[-1], cl[-1] = NB - 1, 1                     # a padded lane
+    layer = L - 1 if L else -1
+    got = ops.paged_attention(q, pool, bt, cl, layer=layer, force="kernel")
+    want = ref.paged_attention_ref(q, pool, bt, cl, layer=layer)
+    torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,H,Hkv,D,causal,window,q_offset", [
+    (8, 16, 4, 2, 16, True, 0, 5),         # pow2 chunk over a pow2 context
+    (37, 70, 4, 2, 16, True, 0, None),     # ragged tiles, tail-aligned
+    (40, 40, 3, 3, 32, True, 0, None),
+    (64, 64, 2, 1, 64, True, 24, None),    # sliding window
+    (48, 48, 2, 2, 16, False, 0, None),    # non-causal
+    (16, 96, 8, 2, 128, True, 7, 60),      # window + offset + GQA
+    (1, 33, 4, 4, 32, True, 0, 32),        # one query row
+])
+def test_flash_attention_kernel(gen, dtype, Sq, Skv, H, Hkv, D, causal,
+                                window, q_offset):
+    q = randn(gen, (2, Sq, H, D), dtype)
+    k = randn(gen, (2, Skv, Hkv, D), dtype)
+    v = randn(gen, (2, Skv, Hkv, D), dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, force="kernel")
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_kv_copy_kernel(gen, dtype):
+    pool = torch.randint(-100, 100, (20, 4, 64), generator=gen,
+                         device="cuda").to(dtype)
+    src = np.array([2, 5, 5, -1, -1, -1, -1, -1], np.int32)
+    dst = np.array([10, 11, 12, 0, 0, 0, 0, 0], np.int32)
+    want = ref.kv_copy_ref(pool.clone(), src, dst)
+    got = ops.kv_copy(pool, src, dst, force="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="overlap"):
+        ops.kv_copy(pool, np.array([1, 2], np.int32),
+                    np.array([2, 3], np.int32), force="kernel")
+
+
+def test_runner_on_the_card_matches_the_cpu(gen):
+    """The reduced llama in fp32 under rotation: the runner on CUDA (the
+    kernels) emits the token streams it emits on the CPU (the plain
+    versions), from the same weights, with its pool updated in place."""
+    import repro_torch.configs as tcfg
+    from repro_torch.core.types import Request
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_runner import PagedModelRunner
+    cfg = dataclasses.replace(tcfg.get_config("llama3-8b").reduced(),
+                              dtype="float32")
+    sv = tcfg.ServingConfig(num_hbm_blocks=16, num_dram_blocks=512,
+                            block_size=4, max_model_len=64, prefill_chunk=8,
+                            paged_runner=True, prefix_cache=True)
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu",
+                         torch.float32)
+    rng = np.random.default_rng(3)
+    pref = [int(x) for x in rng.integers(1, cfg.vocab_size, 12)]
+    reqs = [dict(req_id=i, arrival_time=0.02 * i,
+                 ids=pref + [int(x) for x in rng.integers(
+                     1, cfg.vocab_size, int(rng.integers(8, 16)))],
+                 out=int(rng.integers(10, 16))) for i in range(5)]
+    streams = {}
+    for device in ("cpu", "cuda"):
+        p = {"layers": [{k: v.to(device) for k, v in layer.items()}
+                        for layer in params["layers"]],
+             "head": {k: v.to(device) for k, v in params["head"].items()}}
+        runner = PagedModelRunner(cfg, sv, tcfg.GH200, params=p,
+                                  device=device)
+        eng = ServingEngine(cfg, sv, tcfg.GH200, executor=runner)
+        ptr = runner.store.pool.data_ptr()
+        for r in reqs:
+            eng.add_request(Request(req_id=r["req_id"],
+                                    arrival_time=r["arrival_time"],
+                                    prompt_len=len(r["ids"]),
+                                    output_len=r["out"],
+                                    prompt_ids=r["ids"]))
+        eng.drain(max_time_s=500)
+        assert eng.stats.active_rotations + eng.stats.passive_preemptions
+        assert runner.store.pool.data_ptr() == ptr
+        streams[device] = {r.req_id: list(r.generated_ids)
+                           for r in eng.core.submitted}
+    assert streams["cuda"] == streams["cpu"]

@@ -1,0 +1,55 @@
+"""Import hygiene of the port: no file of ``src/repro_torch`` and no line
+of ``chip_smoke.py`` imports JAX or the JAX package, and the port's entry
+points never fall back to the CPU on their own."""
+import ast
+import re
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], (ast.Constant, ast.JoinedStr))):
+            arg = node.args[0]
+            head = arg.value if isinstance(arg, ast.Constant) else \
+                "".join(v.value for v in arg.values
+                        if isinstance(v, ast.Constant))
+            yield head
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = [m for m in imported_modules(path) if FORBIDDEN.match(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_runner_without_device_needs_cuda():
+    import dataclasses
+    import repro_torch.configs as tc
+    from repro_torch.serving.paged_runner import PagedModelRunner
+    cfg = dataclasses.replace(tc.get_config("llama3-8b").reduced(),
+                              dtype="float32")
+    sv = tc.ServingConfig(num_hbm_blocks=8, block_size=4)
+    if torch.cuda.is_available():
+        assert PagedModelRunner(cfg, sv).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PagedModelRunner(cfg, sv)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PagedModelRunner(cfg, sv, device="cuda")
