@@ -50,4 +50,16 @@ template <> struct Vec<__nv_bfloat16> {
   __device__ __forceinline__ static __nv_bfloat16 from_float(float x) { return __float2bfloat16(x); }
 };
 
+// 16 int8 values: the quantized pool's vector, widened to fp32 (the caller
+// applies the tile's scale).
+template <> struct Vec<int8_t> {
+  static constexpr int VEC = 16;
+  __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
+    int4 v = *reinterpret_cast<const int4*>(src);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]);
+  }
+};
+
 }  // namespace repro_torch

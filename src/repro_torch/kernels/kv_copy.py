@@ -5,10 +5,11 @@ place; ``src[i] < 0`` is a no-op that writes nothing.
 Replaces ``kv_copy_tpu`` (``src/repro/kernels/kv_copy.py:29``) with
 ``csrc/kv_copy.cu``. It is bound by device-memory bytes (each row read
 once and written once), and streams 16-byte vectors over a (row chunk,
-descriptor) grid. The TPU grid ran descriptors in order; the GPU runs them
-in parallel, so a batch is admitted only when its valid destinations are
-unique and disjoint from its valid sources (checked here on the host
-descriptors). Every row movement of the paged runner obeys that: staging
+descriptor) grid; rows that 16 does not divide (the int8 tier's fp32
+scale rows can be 8 bytes) take 4-byte or 1-byte words. The TPU grid ran
+descriptors in order; the GPU runs them in parallel, so a batch is
+admitted only when its valid destinations are unique and disjoint from its
+valid sources (checked here on the host descriptors). Every row movement of the paged runner obeys that: staging
 gathers and scatters pair live rows with staging rows, and a CoW fork
 copies a shared row to a freshly allocated one.
 """
@@ -65,9 +66,6 @@ def kv_copy_kernel(pool: torch.Tensor, src: np.ndarray,
     if not pool.is_contiguous():
         raise ValueError("kv_copy kernel needs a contiguous pool")
     row_bytes = pool[0].numel() * pool.element_size()
-    if row_bytes % 16 or pool.data_ptr() % 16:
-        raise ValueError(f"kv_copy kernel moves 16-byte vectors; a row of "
-                         f"{row_bytes} bytes does not divide")
     n = len(src)
     if n == 0:
         return pool

@@ -15,8 +15,11 @@ from repro_torch.kernels import kv_copy as _copy
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref as ref_ops
 
-_MODULES = {"flash_attention": _flash, "kv_copy": _copy,
-            "paged_attention": _paged}
+# kernel name -> (wrapper module, its launch counter)
+_COUNTERS = {"flash_attention": (_flash, "launches"),
+             "kv_copy": (_copy, "launches"),
+             "paged_attention": (_paged, "launches"),
+             "paged_attention_int8": (_paged, "launches_int8")}
 
 
 def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -38,12 +41,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def paged_attention(q, kv_pool, block_tables, context_lens, *,
-                    layer: int = -1, force: Optional[str] = None):
+                    layer: int = -1, kv_scales=None,
+                    force: Optional[str] = None):
     if _use_kernel(q, force):
         return _paged.paged_attention_kernel(q, kv_pool, block_tables,
-                                             context_lens, layer=layer)
+                                             context_lens, layer=layer,
+                                             kv_scales=kv_scales)
     return ref_ops.paged_attention_ref(q, kv_pool, block_tables, context_lens,
-                                       layer=layer)
+                                       layer=layer, kv_scales=kv_scales)
 
 
 def kv_copy(pool, src, dst, *, force: Optional[str] = None):
@@ -54,10 +59,12 @@ def kv_copy(pool, src, dst, *, force: Optional[str] = None):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches so far, by kernel."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    """Kernel launches so far, by kernel (the int8 mode of paged attention
+    counts apart from its bf16/fp32 mode)."""
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -1,24 +1,29 @@
 """Paged decode attention over the block-first KV pool.
 
 Replaces ``paged_attention_tpu`` (``src/repro/kernels/paged_attention.py:84``)
-in its bf16/fp32 mode with ``csrc/paged_attention.cu``. Decode attention is
-bound by device-memory bytes (each context token's K and V read once), so
-the kernel reads every K/V byte once: one thread block per (kv head,
+in both its modes with ``csrc/paged_attention.cu``: bf16/fp32, and the int8
+``kv_scales`` mode whose dequant is fused into the kernel. Decode attention
+is bound by device-memory bytes (each context token's K and V read once),
+so the kernel reads every K/V byte once: one thread block per (kv head,
 sequence) whose warps are the query heads of that GQA group, sharing each
 K/V tile through shared memory, walking only the blocks the context
-covers, and addressing ``(row, layer)`` of the pool by strides so no slice
-of the pool is copied. The int8 ``kv_scales`` mode is not ported yet.
+covers, and addressing ``(row, layer)`` of the pool (and of the scales) by
+strides so no slice of either is copied. In the int8 mode the pool stays
+int8 in device memory and only the shared-memory tile is fp32.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention_ref
 
-launches = 0      # kernel launches (plain-version calls are not counted)
+launches = 0        # bf16/fp32-mode kernel launches
+launches_int8 = 0   # int8-mode kernel launches (plain-version calls are
+#                     counted by neither)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -26,34 +31,50 @@ _HEAD_DIMS = (16, 32, 64, 128)
 
 def paged_attention(q: torch.Tensor, kv_pool: torch.Tensor,
                     block_tables: torch.Tensor, context_lens: torch.Tensor,
-                    *, layer: int = -1) -> torch.Tensor:
+                    *, layer: int = -1,
+                    kv_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, D); kv_pool: (NB, 2, P, Hkv, D), or (NB, L, 2, P, Hkv, D)
     with ``layer >= 0``; block_tables: (B, MB) int32; context_lens: (B,)
-    int32, each >= 1 -> (B, H, D). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    int32, each >= 1 -> (B, H, D). ``kv_scales`` (fp32, the pool's shape
+    without P and D) marks an int8 pool. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kv_pool, block_tables, context_lens,
-                                   layer=layer)
+                                   layer=layer, kv_scales=kv_scales)
     return paged_attention_kernel(q, kv_pool, block_tables, context_lens,
-                                  layer=layer)
+                                  layer=layer, kv_scales=kv_scales)
 
 
 def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
                            block_tables: torch.Tensor,
                            context_lens: torch.Tensor, *,
-                           layer: int = -1) -> torch.Tensor:
+                           layer: int = -1,
+                           kv_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on the current stream."""
-    global launches
-    for name, t in (("q", q), ("kv_pool", kv_pool),
-                    ("block_tables", block_tables),
-                    ("context_lens", context_lens)):
+    global launches, launches_int8
+    tensors = [("q", q), ("kv_pool", kv_pool),
+               ("block_tables", block_tables),
+               ("context_lens", context_lens)]
+    if kv_scales is not None:
+        tensors.append(("kv_scales", kv_scales))
+    for name, t in tensors:
         if not t.is_cuda:
             raise ValueError(f"paged_attention kernel: {name} is on "
                              f"{t.device}, not CUDA")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention kernel: {name} must be "
                              f"contiguous")
-    if q.dtype not in _DTYPES or kv_pool.dtype != q.dtype:
+    quant = kv_scales is not None
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"paged_attention kernel takes fp32 or bf16 q, got "
+                         f"{q.dtype}")
+    if quant and (kv_pool.dtype != torch.int8
+                  or kv_scales.dtype != torch.float32):
+        raise ValueError(f"paged_attention kernel with kv_scales takes an "
+                         f"int8 pool and fp32 scales, got "
+                         f"{kv_pool.dtype}/{kv_scales.dtype}")
+    if not quant and kv_pool.dtype != q.dtype:
         raise ValueError(f"paged_attention kernel takes fp32 or bf16 q and "
                          f"pool of one dtype, got {q.dtype}/{kv_pool.dtype}")
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
@@ -77,12 +98,19 @@ def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
             f"{tuple(kv_pool.shape)}, block_tables "
             f"{tuple(block_tables.shape)}, context_lens "
             f"{tuple(context_lens.shape)} do not agree")
+    if quant and tuple(kv_scales.shape) != tuple(kv_pool.shape[:-3]) + (Hkv,):
+        raise ValueError(f"paged_attention kernel: scales of shape "
+                         f"{tuple(kv_scales.shape)} do not match pool "
+                         f"{tuple(kv_pool.shape)}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged_attention kernel: head_dim {D} not in "
                          f"{_HEAD_DIMS}")
     if P > 32 or H // Hkv > 32:
         raise ValueError(f"paged_attention kernel: block size {P} and group "
                          f"{H // Hkv} must each be <= 32")
+    if kv_pool.data_ptr() % 16:
+        raise ValueError("paged_attention kernel: the pool must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -90,14 +118,27 @@ def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
     s_side = P * s_tok
     s_row = kv_pool.stride(0)
     layer_off = layer * kv_pool.stride(1) if layered else 0
-    fn = _build.function("paged_attention", "repro_paged_attention", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4 + [
-        ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(fn(q.data_ptr(), kv_pool.data_ptr(), block_tables.data_ptr(),
-                    context_lens.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                    B, H, Hkv, D, MB, P, s_row, layer_off, s_side, s_tok,
-                    D ** -0.5, stream), "paged_attention")
-    launches += 1
+    if not quant:
+        fn = _build.function("paged_attention", "repro_paged_attention", [
+            ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        _build.check(fn(q.data_ptr(), kv_pool.data_ptr(),
+                        block_tables.data_ptr(), context_lens.data_ptr(),
+                        out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, D, MB, P,
+                        s_row, layer_off, s_side, s_tok, D ** -0.5, stream),
+                     "paged_attention")
+        launches += 1
+        return out
+    s_srow = kv_scales.stride(0)
+    s_layer_off = layer * kv_scales.stride(1) if layered else 0
+    fn = _build.function("paged_attention", "repro_paged_attention_q", [
+        ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    _build.check(fn(q.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
+                    block_tables.data_ptr(), context_lens.data_ptr(),
+                    out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, D, MB, P,
+                    s_row, layer_off, s_side, s_tok, s_srow, s_layer_off,
+                    D ** -0.5, stream), "paged_attention int8")
+    launches_int8 += 1
     return out

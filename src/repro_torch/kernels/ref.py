@@ -3,9 +3,10 @@ the CUDA kernels are held against (``src/repro/kernels/ref.py``'s twins).
 
 Each computes in fp32 and casts back to the input dtype, like the oracles
 of the JAX package. ``paged_attention_ref`` also reads the layered pool
-(``layer=``), and ``flash_attention_ref`` takes ``q_offset`` and native GQA
-(k/v carry ``Hkv`` heads), so together they compute what the paged runner
-calls on its main path.
+(``layer=``) and the int8 pool with its scales (``kv_scales=``), and
+``flash_attention_ref`` takes ``q_offset`` and native GQA (k/v carry
+``Hkv`` heads), so together they compute what the paged runner calls on
+its main path.
 """
 from __future__ import annotations
 
@@ -54,20 +55,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def paged_attention_ref(q: torch.Tensor, kv_pool: torch.Tensor,
                         block_tables: torch.Tensor,
                         context_lens: torch.Tensor, *,
-                        layer: int = -1) -> torch.Tensor:
+                        layer: int = -1,
+                        kv_scales: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Decode attention over a block-first paged pool.
 
     q: (B, H, D); kv_pool: (NB, 2, P, Hkv, D), or the layered
     (NB, L, 2, P, Hkv, D) with ``layer >= 0``; block_tables: (B, MB) int32;
-    context_lens: (B,) -> (B, H, D).
+    context_lens: (B,) -> (B, H, D). ``kv_scales`` ((NB, 2, Hkv), or
+    (NB, L, 2, Hkv) when layered, fp32) marks an int8 pool: each gathered
+    (P, D) tile is dequantized in fp32 by its (side, kv head) scale before
+    attending.
     """
     B, H, D = q.shape
     MB = block_tables.shape[1]
     rows = block_tables.reshape(-1).long()
     kv = kv_pool[rows, layer] if layer >= 0 else kv_pool[rows]
     _, _, P, Hkv, _ = kv.shape                 # (B*MB, 2, P, Hkv, D)
-    k = kv[:, 0].reshape(B, MB * P, Hkv, D).float()
-    v = kv[:, 1].reshape(B, MB * P, Hkv, D).float()
+    kv = kv.float()
+    if kv_scales is not None:
+        sc = kv_scales[rows, layer] if layer >= 0 else kv_scales[rows]
+        kv = kv * sc.float()[:, :, None, :, None]    # (B*MB, 2, 1, Hkv, 1)
+    k = kv[:, 0].reshape(B, MB * P, Hkv, D)
+    v = kv[:, 1].reshape(B, MB * P, Hkv, D)
     qg = q.reshape(B, Hkv, H // Hkv, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, k) / (D ** 0.5)
     pos = torch.arange(MB * P, device=q.device)[None]

@@ -275,9 +275,9 @@ class EngineCore:
         self.replica_role = "replica"
         self.telemetry = None
         if getattr(serving, "telemetry", False):
-            raise NotImplementedError(
-                "the flight recorder (serving.telemetry) is not ported yet "
-                "(ROADMAP.md §1 item 4)")
+            from repro_torch.serving.telemetry import TelemetryBus
+            self.telemetry = TelemetryBus(
+                capacity=getattr(serving, "telemetry_buffer", 65536))
         self._exec_ema = 0.03   # for auto B_xfer sizing
         # Cross-iteration two-stage pipeline (ServingConfig.pipeline): the
         # per-direction transfer channels persist across step() calls and

@@ -97,8 +97,8 @@ class ServingEngine:
 
     def write_trace(self, path: str):
         """Export this engine's flight recorder as a Perfetto JSON file."""
-        raise NotImplementedError(
-            "trace export is not ported yet (ROADMAP.md §1 item 4)")
+        from repro_torch.serving.trace_export import write_trace
+        return write_trace(path, [self.core])
 
     # ------------------------------------------------------------- online API
     def add_request(self, prompt_len=None, *,

@@ -1,12 +1,12 @@
 """PagedModelRunner: batched real execution over a pooled block-first KV
 cache, on the hand-written CUDA kernels and DuplexKV (paper §4.3).
 
-The port of ``src/repro/serving/paged_runner.py`` on its bf16/fp32 path at
-``tp == 1``. The engine's logical block decisions ARE the physical layout:
-one pooled ``(rows, L, 2, P, Hkv, D)`` device tensor holds every layer of
-one logical KV block contiguously per row, and rows are addressed by the
-``TwoTierBlockTable``'s ``hbm_slot``s — the same integers the scheduler
-budgets with.
+The port of ``src/repro/serving/paged_runner.py`` at ``tp == 1``, in
+bf16/fp32 and in the int8 KV tier. The engine's logical block decisions
+ARE the physical layout: one pooled ``(rows, L, 2, P, Hkv, D)`` device
+tensor holds every layer of one logical KV block contiguously per row, and
+rows are addressed by the ``TwoTierBlockTable``'s ``hbm_slot``s — the same
+integers the scheduler budgets with.
 
 * **Decode** is ONE batched paged-attention launch per layer per iteration
   (``kernels/paged_attention.py``; the kernel reads the block table), with
@@ -19,18 +19,30 @@ budgets with.
   movement**: ``PagedKVStore`` executes every ``TransferDesc`` the DuplexKV
   times as a batched ``kv_copy`` launch through a staging region, plus one
   contiguous host copy per chunk to or from the host tier.
+* **The int8 KV tier** (``ServingConfig.kv_dtype == "int8"``): the pool
+  holds int8 values, and a parallel fp32 scale tensor, one scale per (row,
+  layer, K/V side, kv head), rides every row movement with the same slot
+  indices. K/V writes go through ``kernels/quant.py::quant_store_tokens``
+  (running block scales); decode runs the paged kernel's int8 mode, which
+  dequantizes inside the kernel; prefill dequantizes the gathered context
+  before the flash kernel.
 
 Where JAX donated the pool to each jitted call, the port updates the pool
-in place (the K/V token scatter and every row copy), so its storage never
-moves. Iteration wall-time still comes from a ``SimExecutor``.
+and the scales in place (the K/V token stores and every row copy), so
+their storage never moves. The reference keeps separate ``_*_impl_q``
+functions so its bf16 jaxpr stays byte-identical; eager PyTorch has no
+such trace, so the int8 tier is a branch in ``_store_kv`` and
+``_context`` and the kernel call's ``kv_scales``. Iteration wall-time
+still comes from a ``SimExecutor``.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import (GH200, HardwareProfile, ModelConfig,
                                       ServingConfig)
@@ -39,6 +51,7 @@ from repro_torch.core.types import RequestState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_copy import kv_copy
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.quant import kv_scale_shape, quant_store_tokens
 from repro_torch.models.attention import flash_attention
 from repro_torch.models.common import apply_rope, dtype_of, rms_norm, swiglu
 from repro_torch.models.params import init_params
@@ -56,29 +69,27 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _require_unquantized(kv_dtype: str) -> None:
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: the int8 KV tier is not ported yet "
-            f"(ROADMAP.md §1 item 2)")
-
-
 class PagedKVStore:
     """Physical two-tier KV storage behind the block table's slot numbers.
 
     Device tier: one pool tensor of ``num_hbm_blocks`` rows plus a staging
     region (``staging`` rows) and one trash row (scatter target for padded
-    batch lanes). Host tier: a dict keyed by DRAM slot whose values are CPU
-    tensors, one row each, which DuplexKV may move by reference. Implements
-    the DuplexKV data-backend protocol (``run_d2d``/``run_d2h``/
-    ``run_h2d``): each direction is a batched ``kv_copy`` launch through
-    staging plus one contiguous host copy.
+    batch lanes); with ``kv_dtype="int8"`` an int8 pool plus a fp32
+    ``scales`` tensor of the same rows. Host tier: a dict keyed by DRAM slot
+    whose values are CPU tensors, one row each (a ``(int8 row, fp32 scale
+    row)`` tuple in the int8 tier), which DuplexKV may move by reference;
+    row movement never requantizes. Implements the DuplexKV data-backend
+    protocol (``run_d2d``/``run_d2h``/``run_h2d``): each direction is a
+    batched ``kv_copy`` launch through staging plus one contiguous host
+    copy.
     """
 
     def __init__(self, cfg: ModelConfig, serving: ServingConfig,
                  dtype: torch.dtype, *, device=None, staging: int = 64,
                  double_buffer: bool = False, kv_dtype: str = "bf16"):
-        _require_unquantized(kv_dtype)
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
+                             f"got {kv_dtype!r}")
         if staging < 1 or staging & (staging - 1):
             # chunk padding rounds up to a power of two; a non-pow2 staging
             # region would let a padded chunk spill past it into live rows
@@ -111,9 +122,22 @@ class PagedKVStore:
             self.h2d_chunk = staging
             self.d2h_chunk = staging
         self.row_shape = (L, 2, P, cfg.num_kv_heads, cfg.head_dim)
-        self.pool = torch.zeros((self.nb + staging + 1,) + self.row_shape,
-                                dtype=dtype, device=self.device)
-        self.host: Dict[int, torch.Tensor] = {}   # dram_slot -> row (CPU)
+        rows = self.nb + staging + 1
+        # int8 tier: one fp32 scale per (row, layer, K/V side, kv head),
+        # updated in place like the pool and moved with the same slots
+        self.quantized = kv_dtype == "int8"
+        self.scales: Optional[torch.Tensor] = None
+        self.scale_row_shape = None
+        if self.quantized:
+            dtype = torch.int8
+            self.scale_row_shape = kv_scale_shape(self.row_shape)
+            self.scales = torch.zeros((rows,) + self.scale_row_shape,
+                                      dtype=torch.float32, device=self.device)
+        self.pool = torch.zeros((rows,) + self.row_shape, dtype=dtype,
+                                device=self.device)
+        # dram_slot -> CPU row | (int8 row, fp32 scale row)
+        self.host: Dict[int, Union[torch.Tensor,
+                                   Tuple[torch.Tensor, torch.Tensor]]] = {}
         # counters (benchmarks / tests)
         self.copy_launches = 0
         self.d2d_rows = 0
@@ -125,16 +149,34 @@ class PagedKVStore:
         self.copy_launch_wall_s = 0.0
         self.upload_launch_wall_s = 0.0
 
+    @property
+    def pool_shard_bytes(self) -> int:
+        """Bytes one device holds: the whole pool at ``tp == 1``, scales
+        included in the int8 tier (they are part of the KV footprint)."""
+        return self.pool_global_bytes
+
+    @property
+    def pool_global_bytes(self) -> int:
+        n = self.pool.numel() * self.pool.element_size()
+        if self.quantized:
+            n += self.scales.numel() * self.scales.element_size()
+        return n
+
     def _copy_rows(self, src: Sequence[int], dst: Sequence[int]) -> None:
-        """One batched row-copy launch: pool[dst[i]] = pool[src[i]].
-        Padded to a power of two with no-op descriptors (src < 0)."""
+        """One batched row-copy launch: pool[dst[i]] = pool[src[i]] (and a
+        second launch with the same descriptors on the scale rows in the
+        int8 tier). Padded to a power of two with no-op descriptors
+        (src < 0)."""
         n = len(src)
         np2 = _pow2(n)
         s = np.full(np2, -1, np.int32)
         d = np.zeros(np2, np.int32)
         s[:n], d[:n] = src, dst
         t0 = time.perf_counter()
-        kv_copy(self.pool.view(self.pool.shape[0], -1), s, d)
+        with record_function("superinfer.kv_copy"):
+            kv_copy(self.pool.view(self.pool.shape[0], -1), s, d)
+            if self.quantized:
+                kv_copy(self.scales.view(self.scales.shape[0], -1), s, d)
         self.copy_launch_wall_s += time.perf_counter() - t0
         self.copy_launches += 1
 
@@ -153,8 +195,13 @@ class PagedKVStore:
         n = len(chunk)
         t0 = time.perf_counter()
         data = self.pool[base:base + n].cpu()
-        for j, d in enumerate(chunk):
-            self.host[d.dst_slot] = data[j].clone()
+        if self.quantized:
+            sdata = self.scales[base:base + n].cpu()
+            for j, d in enumerate(chunk):
+                self.host[d.dst_slot] = (data[j].clone(), sdata[j].clone())
+        else:
+            for j, d in enumerate(chunk):
+                self.host[d.dst_slot] = data[j].clone()
         self.copy_launch_wall_s += time.perf_counter() - t0
         self.d2h_rows += n
 
@@ -196,8 +243,15 @@ class PagedKVStore:
                         f"{d.src_slot} holds no data (lost copy)")
                 rows.append(row)
             t0 = time.perf_counter()
-            self.pool[self.h2d_base:self.h2d_base + n].copy_(
-                torch.stack(rows))
+            base = self.h2d_base
+            with record_function("superinfer.kv_upload"):
+                if self.quantized:
+                    self.pool[base:base + n].copy_(
+                        torch.stack([r[0] for r in rows]))
+                    self.scales[base:base + n].copy_(
+                        torch.stack([r[1] for r in rows]))
+                else:
+                    self.pool[base:base + n].copy_(torch.stack(rows))
             self.upload_launch_wall_s += time.perf_counter() - t0
             self._copy_rows(list(range(self.h2d_base, self.h2d_base + n)),
                             [d.dst_slot for d in chunk])
@@ -246,11 +300,11 @@ class PagedModelRunner(Executor):
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP.md §1 item 3)")
         self.kv_dtype = getattr(serving, "kv_dtype", "bf16") or "bf16"
-        _require_unquantized(self.kv_dtype)
         self.cfg = model_cfg
         self.serving = serving
         self.device = resolve_device(device)
-        self.sim = sim or SimExecutor(timing_cfg or model_cfg, hw)
+        self.sim = sim or SimExecutor(timing_cfg or model_cfg, hw,
+                                      kv_dtype=self.kv_dtype)
         self.dtype = dtype_of(model_cfg.dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -388,7 +442,9 @@ class PagedModelRunner(Executor):
         rows_p = np.full(mbp, self.store.trash_row, np.int32)
         rows_p[:min(len(rows), mbp)] = rows[:mbp]
         t0 = time.perf_counter()
-        top = self._prefill(self._ids(ids_p), start, take, self._ids(rows_p))
+        with record_function("superinfer.prefill_chunk"):
+            top = self._prefill(self._ids(ids_p), start, take,
+                                self._ids(rows_p))
         self.prefill_launch_wall_s += time.perf_counter() - t0
         self.prefill_chunks_run += 1
         if start + take >= r.prompt_len and r.tokens_generated == 0:
@@ -417,7 +473,9 @@ class PagedModelRunner(Executor):
             k = min(len(rows[i]), mbp)
             bt[i, :k] = rows[i][:k]
         t0 = time.perf_counter()
-        top = self._decode(self._ids(toks), self._ids(bt), self._ids(cl_p))
+        with record_function("superinfer.paged_decode"):
+            top = self._decode(self._ids(toks), self._ids(bt),
+                               self._ids(cl_p))
         self.decode_launch_wall_s += time.perf_counter() - t0
         self.decode_batches += 1
         self.decode_tokens += len(dec)
@@ -435,12 +493,40 @@ class PagedModelRunner(Executor):
         return torch.stack([logits.argmax(dim=-1).float(),
                             top2[..., 0] - top2[..., 1]], dim=-1)
 
+    def _store_kv(self, li: int, wrow, woff, k, v) -> None:
+        """Write per-token K/V ``(T, Hkv, D)`` of layer ``li`` into the pool
+        at (row ``wrow``, in-block offset ``woff``), in place: a plain
+        scatter, or in the int8 tier the running-scale quantized store."""
+        pool = self.store.pool
+        if self.store.quantized:
+            lrow = torch.full_like(wrow, li)
+            quant_store_tokens(pool, self.store.scales, wrow, lrow, 0, woff,
+                               k)
+            quant_store_tokens(pool, self.store.scales, wrow, lrow, 1, woff,
+                               v)
+            return
+        pool[wrow, li, 0, woff] = k.to(pool.dtype)
+        pool[wrow, li, 1, woff] = v.to(pool.dtype)
+
+    def _context(self, li: int, btl, side: int, dtype) -> torch.Tensor:
+        """Layer ``li``'s K (side 0) or V (side 1) of pool rows ``btl``
+        (MB,), gathered as ``(1, MB * P, Hkv, D)`` in ``dtype``; the int8
+        tier dequantizes it in fp32 first."""
+        pool = self.store.pool
+        n = btl.shape[0] * pool.shape[3]
+        hkv, hd = pool.shape[-2], pool.shape[-1]
+        ctx = pool[btl, li, side]
+        if self.store.quantized:
+            ctx = (ctx.float()
+                   * self.store.scales[btl, li, side][:, None, :, None])
+        return ctx.reshape(1, n, hkv, hd).to(dtype)
+
     @torch.no_grad()
     def _decode(self, toks, bt, cl) -> torch.Tensor:
         """toks/cl: (B,); bt: (B, MB) pool rows (trash row on padded
         lanes/slots). Per layer: write the new token's K/V into its tail
         block row in place, then one paged-attention launch over the whole
-        batch."""
+        batch (its int8 mode in the int8 tier)."""
         cfg = self.cfg
         pool = self.store.pool
         P = self.serving.block_size
@@ -457,10 +543,9 @@ class PagedModelRunner(Executor):
             v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
-            pool[wrow, li, 0, woff] = k[:, 0].to(pool.dtype)
-            pool[wrow, li, 1, woff] = v[:, 0].to(pool.dtype)
+            self._store_kv(li, wrow, woff, k[:, 0], v[:, 0])
             out = paged_attention(q[:, 0].contiguous(), pool, bt, cl + 1,
-                                  layer=li)
+                                  layer=li, kv_scales=self.store.scales)
             x = x + torch.einsum("bhk,hkd->bd", out, p["wo"])
             h2 = rms_norm(x[:, None], p["ln2"], cfg.rms_eps)
             x = x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])[:, 0]
@@ -476,7 +561,6 @@ class PagedModelRunner(Executor):
         (argmax, margin) at the chunk tail (meaningful only when the chunk
         completes the prompt)."""
         cfg = self.cfg
-        pool = self.store.pool
         P = self.serving.block_size
         T = ids.shape[0]
         MB = bt.shape[0]
@@ -488,7 +572,6 @@ class PagedModelRunner(Executor):
                            torch.full_like(blk, self.store.trash_row))
         woff = tpos % P
         btl = bt.long()
-        hkv, hd = pool.shape[-2], pool.shape[-1]
         for li, p in enumerate(self._layers):
             h = rms_norm(x, p["ln1"], cfg.rms_eps)
             q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
@@ -496,10 +579,9 @@ class PagedModelRunner(Executor):
             v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
             q = apply_rope(q, tpos[None], cfg.rope_theta)
             k = apply_rope(k, tpos[None], cfg.rope_theta)
-            pool[wrow, li, 0, woff] = k[0].to(pool.dtype)
-            pool[wrow, li, 1, woff] = v[0].to(pool.dtype)
-            k_ctx = pool[btl, li, 0].reshape(1, MB * P, hkv, hd).to(k.dtype)
-            v_ctx = pool[btl, li, 1].reshape(1, MB * P, hkv, hd).to(v.dtype)
+            self._store_kv(li, wrow, woff, k[0], v[0])
+            k_ctx = self._context(li, btl, 0, k.dtype)
+            v_ctx = self._context(li, btl, 1, v.dtype)
             out = flash_attention(q.contiguous(), k_ctx, v_ctx, causal=True,
                                   q_offset=start)
             x = x + torch.einsum("bshk,hkd->bsd", out, p["wo"])

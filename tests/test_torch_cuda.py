@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions over a sweep of
-small shapes, and the paged runner on the card against itself on the CPU.
+small shapes (the paged kernel in both its modes, ``kv_copy`` on pool and
+scale rows), ``quant_store_tokens`` on the card against the CPU, and the
+paged runner on the card against itself on the CPU, bf16 and int8 KV.
 These need a CUDA card (nvcc builds the kernels at first use); without one
 every test here skips. On the card:
 
@@ -79,6 +81,88 @@ def test_flash_attention_kernel(gen, dtype, Sq, Skv, H, Hkv, D, causal,
     torch.testing.assert_close(got, want, **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,D,P,MB,L", [
+    (3, 4, 2, 16, 4, 6, 4),        # the reduced llama the runner serves
+    (2, 8, 8, 32, 8, 3, 0),        # MHA, flat pool
+    (5, 8, 1, 64, 16, 5, 2),       # MQA
+    (4, 16, 2, 128, 32, 2, 1),     # group of 8, 32-token blocks
+    (6, 32, 8, 128, 16, 4, 0),     # llama3-8b's heads, flat pool
+])
+def test_paged_attention_int8_kernel(gen, dtype, B, H, Hkv, D, P, MB, L):
+    """The int8 mode (fused dequant) against its plain version, with a
+    padded lane on the trash row and a row whose scales are SCALE_EPS."""
+    from repro_torch.kernels.quant import SCALE_EPS
+    NB = B * MB + 2
+    lead = (NB, L) if L else (NB,)
+    q = randn(gen, (B, H, D), dtype)
+    pool = torch.randint(-127, 128, lead + (2, P, Hkv, D), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    scales = torch.rand(lead + (2, Hkv), generator=gen, device="cuda") * 0.05
+    scales[0] = SCALE_EPS
+    bt = torch.randint(0, NB - 1, (B, MB), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cl = torch.randint(1, MB * P + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    bt[0, 0] = 0                                    # the EPS row
+    bt[-1], cl[-1] = NB - 1, 1                     # a padded lane
+    layer = L - 1 if L else -1
+    ops.reset_launch_counts()
+    got = ops.paged_attention(q, pool, bt, cl, layer=layer, kv_scales=scales,
+                              force="kernel")
+    assert ops.launch_counts()["paged_attention_int8"] == 1
+    want = ref.paged_attention_ref(q, pool, bt, cl, layer=layer,
+                                   kv_scales=scales)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+def test_quant_store_tokens_on_the_card_matches_the_cpu(gen):
+    """A prefill chunk over several blocks (duplicate rows, mid-block start,
+    padded lanes on the trash row) and a decode step, K and V, on a pool
+    with stale content and scales: int8 values and scales as on the CPU."""
+    from repro_torch.kernels.quant import quant_store_tokens
+    g = torch.Generator().manual_seed(1)
+    R, L, P, Hkv, D = 24, 2, 4, 2, 16
+    pool_c = torch.randint(-127, 128, (R, L, 2, P, Hkv, D), generator=g,
+                           dtype=torch.int8)
+    scales_c = torch.rand((R, L, 2, Hkv), generator=g) + 1e-3
+    pool_g, scales_g = pool_c.cuda(), scales_c.cuda()
+    T, start = 16, 5
+    tpos = start + torch.arange(T)
+    wrow = 2 + tpos // P
+    wrow[-3:] = R - 1
+    vals = torch.randn((T, Hkv, D), generator=g) * 3.0
+    drow = torch.tensor([10, 11, 12, R - 1, R - 1])
+    doff = torch.tensor([0, 2, 3, 0, 0])
+    dvals = torch.randn((5, Hkv, D), generator=g) * 9.0
+    dvals[-2:] = dvals[-1]
+    for wr, li, wo, v in ((wrow, 1, tpos % P, vals), (drow, 0, doff, dvals)):
+        for side in (0, 1):
+            lr = torch.full_like(wr, li)
+            quant_store_tokens(pool_c, scales_c, wr, lr, side, wo, v)
+            quant_store_tokens(pool_g, scales_g, wr.cuda(), lr.cuda(), side,
+                               wo.cuda(), v.cuda())
+    diff = (pool_g.cpu().int() - pool_c.int()).abs()
+    assert int(diff.max()) <= 1, f"{int((diff > 0).sum())} values differ"
+    torch.testing.assert_close(scales_g.cpu(), scales_c, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("L,Hkv", [(1, 1), (2, 2), (32, 8)])
+def test_kv_copy_kernel_on_scale_rows(gen, L, Hkv):
+    """The int8 tier's fp32 scale rows, 8 * L * Hkv bytes: 8 (not a
+    multiple of 16, the narrow-word path), 32 and 2048 (llama3-8b)."""
+    scales = torch.rand((12, L, 2, Hkv), generator=gen, device="cuda")
+    flat = scales.view(12, -1)
+    assert flat[0].numel() * 4 == 8 * L * Hkv
+    src = np.array([1, 4, 6, -1], np.int32)
+    dst = np.array([8, 9, 10, 0], np.int32)
+    want = ref.kv_copy_ref(flat.clone(), src, dst)
+    got = ops.kv_copy(flat, src, dst, force="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_kv_copy_kernel(gen, dtype):
     pool = torch.randint(-100, 100, (20, 4, 64), generator=gen,
@@ -94,7 +178,8 @@ def test_kv_copy_kernel(gen, dtype):
                     np.array([2, 3], np.int32), force="kernel")
 
 
-def test_runner_on_the_card_matches_the_cpu(gen):
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_runner_on_the_card_matches_the_cpu(gen, kv_dtype):
     """The reduced llama in fp32 under rotation: the runner on CUDA (the
     kernels) emits the token streams it emits on the CPU (the plain
     versions), from the same weights, with its pool updated in place."""
@@ -107,7 +192,8 @@ def test_runner_on_the_card_matches_the_cpu(gen):
                               dtype="float32")
     sv = tcfg.ServingConfig(num_hbm_blocks=16, num_dram_blocks=512,
                             block_size=4, max_model_len=64, prefill_chunk=8,
-                            paged_runner=True, prefix_cache=True)
+                            paged_runner=True, prefix_cache=True,
+                            kv_dtype=kv_dtype)
     params = init_params(cfg, torch.Generator().manual_seed(3), "cpu",
                          torch.float32)
     rng = np.random.default_rng(3)

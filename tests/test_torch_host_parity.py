@@ -42,10 +42,17 @@ def test_sim_report_row_equals_reference():
 
 @pytest.mark.parametrize("field,value", [("telemetry", True), ("tp", 2)])
 def test_unported_serving_options_raise(field, value):
+    """tp > 1 is not ported and raises. The flight recorder is ported
+    now: with telemetry on, the engine builds and carries its bus."""
     import dataclasses
     import repro_torch.configs as tc
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.telemetry import TelemetryBus
     sv = dataclasses.replace(serve_defaults(tc), **{field: value})
+    if field == "telemetry":
+        eng = ServingEngine(tc.get_config("qwen2.5-32b"), sv, tc.GH200)
+        assert isinstance(eng.telemetry, TelemetryBus)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tc.get_config("qwen2.5-32b"), sv, tc.GH200)
 

@@ -39,6 +39,29 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_new_modules_are_covered_and_import_no_jax():
+    """The modules of the int8 tier and the serving CLI are among the files
+    checked above, and importing all of them loads neither JAX nor the
+    reference package (checked in a fresh interpreter)."""
+    import os
+    import subprocess
+    import sys
+    mods = ["repro_torch.kernels.quant", "repro_torch.serving.telemetry",
+            "repro_torch.serving.trace_export", "repro_torch.serving.router",
+            "repro_torch.serving.disagg", "repro_torch.core.migration",
+            "repro_torch.launch.serve"]
+    covered = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
+    for m in mods:
+        assert m.replace(".", "/") + ".py" in covered, m
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
 def test_runner_without_device_needs_cuda():
     import dataclasses
     import repro_torch.configs as tc

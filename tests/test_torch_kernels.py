@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import kv_copy as kv_copy_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
+from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.models.attention import flash_attention  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -206,6 +207,10 @@ def test_force_kernel_on_cpu_raises():
                     np.array([1], np.int32), force="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         paged_mod.paged_attention_kernel(t(q), t(pool), t(bt), t(cl))
+    qpool, scales = quant.quantize_kv(t(pool))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_attention(t(q), qpool, t(bt), t(cl), kv_scales=scales,
+                            force="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         flash_mod.flash_attention_kernel(t(qq), t(k), t(v))
     with pytest.raises(ValueError, match="force"):
@@ -220,9 +225,16 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     torch.testing.assert_close(
         got, ops.paged_attention(t(q), t(pool), t(bt), t(cl), force="ref"),
         rtol=0, atol=0)
+    qpool, scales = quant.quantize_kv(t(pool))
+    got = paged_mod.paged_attention(t(q), qpool, t(bt), t(cl),
+                                    kv_scales=scales)
+    torch.testing.assert_close(
+        got, ops.paged_attention(t(q), qpool, t(bt), t(cl), kv_scales=scales,
+                                 force="ref"), rtol=0, atol=0)
     qq, k, v = qkv(7, 1, 4, 8, 2, 2, 16)
     flash_mod.flash_attention(t(qq), t(k), t(v))
     kv_copy_mod.kv_copy(torch.zeros(4, 8), np.array([0], np.int32),
                         np.array([1], np.int32))
     assert ops.launch_counts() == {"flash_attention": 0, "kv_copy": 0,
-                                   "paged_attention": 0}
+                                   "paged_attention": 0,
+                                   "paged_attention_int8": 0}

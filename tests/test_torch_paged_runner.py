@@ -18,6 +18,7 @@ from repro.serving.paged_runner import PagedModelRunner  # noqa: E402
 
 import repro_torch.configs as tcfg  # noqa: E402
 from repro_torch.core.blocktable import TransferDesc  # noqa: E402
+from repro_torch.core.duplexkv import DuplexKV  # noqa: E402
 from repro_torch.core.types import Request as TRequest  # noqa: E402
 from repro_torch.models.params import from_jax_params  # noqa: E402
 from repro_torch.serving.engine import ServingEngine as TServingEngine  # noqa: E402
@@ -226,8 +227,10 @@ def test_runner_refuses_unported_and_unsupported():
                               dtype="float32")
     with pytest.raises(ValueError, match="dense-attention"):
         TPagedModelRunner(ssm, sv, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TPagedModelRunner(TCFG, dataclasses.replace(sv, kv_dtype="int8"),
-                          device="cpu")
+    # the int8 KV tier is ported: accepted, and its pool is int8
+    sv8 = dataclasses.replace(sv, kv_dtype="int8")
+    int8 = TPagedModelRunner(TCFG, sv8, device="cpu")
+    int8.bind(DuplexKV(TCFG, sv8, tcfg.GH200))
+    assert int8.store.quantized and int8.store.pool.dtype == torch.int8
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         TPagedModelRunner(TCFG, dataclasses.replace(sv, tp=2), device="cpu")
