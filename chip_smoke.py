@@ -12,10 +12,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    process per source, all at once;
 3. kernel vs plain: each kernel (and the int8 mode of paged attention)
    against its plain PyTorch version on the card, at llama3-8b's
-   full-width shapes, in bf16 and fp32, edge cases included, each within a
-   stated tolerance; ``quant_store_tokens`` on the card against the CPU;
+   full-width shapes, in bf16 and fp32, edge cases included (flash: a
+   37-row chunk under a window; paged: B=8 with empty splits), each within
+   a stated tolerance; the paged kernel's output for one sequence bitwise
+   equal alone and in a batch; ``quant_store_tokens`` on the card against
+   the CPU;
 4. timing: each kernel at main-path shapes (CUDA events, median after
    warm-up) beside its bound, its plain version and a library yardstick;
+   paged attention also at the main path's decode batch (B=8, ctx 1024,
+   both modes, a different layer each call so no call finds the last in
+   L2);
 5. serving: llama3-8b at full width (bf16 weights, random from a seeded
    generator) through ``ServingEngine(..., paged_runner=True)``, once with
    the bf16 KV pool and once with the int8 tier: (a) ample HBM, (b) HBM
@@ -29,11 +35,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
 It prints a JSON line of kernel results, then the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
 JAX and nothing of the JAX package.
+
+``python3 chip_smoke.py --timing`` runs phases 1, 2 and 4 only and prints
+phase 4's times as one JSON line ``{"timing": {...}}``: the quick way to
+compare two trees' kernels on one card (run each tree's copy of the
+script in turn, within one machine).
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -137,23 +149,64 @@ def kernel_checks(torch, ops, ref, cfg, errs, dev="cuda"):
             check("paged_attention", dname,
                   f"B={B} ragged ctx, 4 padded lanes, layer {layer}", got,
                   want, tol, errs)
+        # B=8 over a 64-block table (clusters of 8 CTAs): contexts that
+        # leave trailing splits empty, end on a split boundary or pass one
+        q8, bt8 = q[:8].contiguous(), bt[:8].contiguous()
+        cl8 = torch.tensor(EMPTY_SPLIT_CTX, device=dev, dtype=torch.int32)
+        bt8[0] = trash
+        got = ops.paged_attention(q8, pool, bt8, cl8, layer=L - 1,
+                                  force="kernel")
+        want = ref.paged_attention_ref(q8, pool, bt8, cl8, layer=L - 1)
+        torch.cuda.synchronize()
+        check("paged_attention", dname,
+              f"B=8 ctx {EMPTY_SPLIT_CTX}: empty splits", got, want, tol,
+              errs)
+        batch_invariance(torch, ops, q, pool, bt, cl, L - 1, None, dname)
         del pool
         # flash attention: a 512-token chunk over a 1024-token context at
-        # q_offset 300 (!= Skv - Sq), then a 256-token window, tail-aligned
-        for off, win in ((300, 0), (None, 256)):
-            q = torch.randn((1, 512, H, D), generator=g, device=dev).to(dt)
-            k = torch.randn((1, 1024, Hkv, D), generator=g, device=dev).to(dt)
-            v = torch.randn((1, 1024, Hkv, D), generator=g, device=dev).to(dt)
+        # q_offset 300 (!= Skv - Sq), then a 256-token window, tail-aligned,
+        # then a 37-row chunk at q_offset 700 over 1000 keys (not a multiple
+        # of the 64-key tile) under a 128-token window
+        for T, Skv, off, win in ((512, 1024, 300, 0), (512, 1024, None, 256),
+                                 (37, 1000, 700, 128)):
+            q = torch.randn((1, T, H, D), generator=g, device=dev).to(dt)
+            k = torch.randn((1, Skv, Hkv, D), generator=g, device=dev).to(dt)
+            v = torch.randn((1, Skv, Hkv, D), generator=g, device=dev).to(dt)
             got = ops.flash_attention(q, k, v, causal=True, window=win,
                                       q_offset=off, force="kernel")
             want = ref.flash_attention_ref(q, k, v, causal=True, window=win,
                                            q_offset=off)
             torch.cuda.synchronize()
             check("flash_attention", dname,
-                  f"T=512 Skv=1024 q_offset={off} window={win}", got, want,
+                  f"T={T} Skv={Skv} q_offset={off} window={win}", got, want,
                   tol, errs)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+EMPTY_SPLIT_CTX = [1, 40, 128, 129, 300, 1024, 700, 5]
+
+
+def batch_invariance(torch, ops, q, pool, bt, cl, layer, scales, dname):
+    """Lane 0's output bitwise equal alone (a table just wide enough) and
+    in the whole batch (a 64-block table, other companions)."""
+    P = pool.shape[-3]
+    nblk = -(-int(cl[0]) // P)
+    alone = ops.paged_attention(q[:1].contiguous(), pool,
+                                bt[:1, :nblk].contiguous(),
+                                cl[:1].contiguous(), layer=layer,
+                                kv_scales=scales, force="kernel")
+    full = ops.paged_attention(q, pool, bt, cl, layer=layer,
+                               kv_scales=scales, force="kernel")
+    torch.cuda.synchronize()
+    same = torch.equal(alone[0], full[0])
+    log(f"check paged_attention{'' if scales is None else '_int8'} {dname} "
+        f"batch invariance: context {int(cl[0])}, alone ({nblk} blocks) vs "
+        f"in a batch of {q.shape[0]} ({bt.shape[1]} blocks): bitwise equal "
+        f"{same}")
+    if not same:
+        raise AssertionError("paged_attention: a sequence's output depends "
+                             "on its batch")
 
 
 def int8_pool(torch, g, lead, cfg, P, dev):
@@ -206,6 +259,22 @@ def int8_checks(torch, ops, ref, quant, cfg, errs, dev="cuda"):
                       f"{'layered' if layered else 'flat'} pool, layer "
                       f"{layer}, B={B} ragged ctx, 4 padded lanes, an EPS "
                       f"row", got, want, TOL[dname], errs)
+            layer = L - 1 if layered else -1
+            q8, bt8 = q[:8].contiguous(), bt[:8].contiguous()
+            cl8 = torch.tensor(EMPTY_SPLIT_CTX, device=dev,
+                               dtype=torch.int32)
+            bt8[0] = trash
+            got = ops.paged_attention(q8, pool, bt8, cl8, layer=layer,
+                                      kv_scales=scales, force="kernel")
+            want = ref.paged_attention_ref(q8, pool, bt8, cl8, layer=layer,
+                                           kv_scales=scales)
+            torch.cuda.synchronize()
+            check("paged_attention_int8", dname,
+                  f"{'layered' if layered else 'flat'} pool, B=8 ctx "
+                  f"{EMPTY_SPLIT_CTX}: empty splits", got, want, TOL[dname],
+                  errs)
+            batch_invariance(torch, ops, q, pool, bt, cl, layer, scales,
+                             dname)
         del pool, scales
     # quant_store_tokens, card against CPU: a 512-token prefill chunk that
     # starts mid-block (its last 12 lanes padded onto the trash row), then
@@ -281,30 +350,36 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
         *bound(2 * 64 * row_bytes, 0),
         time_ms(torch, lambda: flat.index_copy_(0, d_t, flat.index_select(
             0, s_t))))
-    # paged attention: decode B=32 at context 1024, one layer of the pool
-    B, MB, ctx = 32, 64, 1024
-    q = torch.randn((B, H, D), generator=g, device=dev).to(dt)
-    bt = torch.randint(0, NB, (B, MB), generator=g, device=dev,
-                       dtype=torch.int32)
-    cl = torch.full((B,), ctx, device=dev, dtype=torch.int32)
-    nbytes = 2 * B * H * D * e + B * ctx * Hkv * D * 2 * e + B * MB * 4 + B * 4
-    flops = 4 * B * ctx * H * D
-    out["paged_attention"] = (
-        time_ms(torch, lambda: ops.paged_attention(q, pool, bt, cl, layer=0,
-                                                   force="kernel")),
-        time_ms(torch, lambda: ref.paged_attention_ref(q, pool, bt, cl,
-                                                       layer=0)),
-        *bound(nbytes, flops), None)
-    # its int8 mode at the same shape: int8 K/V, fp32 scales, bf16 q/out
+    # paged attention in both modes: decode B=32 at context 1024 on one
+    # layer of the pool (the shape timed since the first port), then the
+    # main path's decode batch, B=8 at context 1024, a different layer each
+    # call (one layer's 16.8 MB of K/V would otherwise stay in the 50 MB L2
+    # between calls)
     qpool, qscales = int8_pool(torch, g, (rows, L), cfg, P, dev)
-    nbytes = (2 * B * H * D * e + B * ctx * Hkv * D * 2 + B * MB * 2 * Hkv * 4
-              + B * MB * 4 + B * 4)
-    out["paged_attention_int8"] = (
-        time_ms(torch, lambda: ops.paged_attention(
-            q, qpool, bt, cl, layer=0, kv_scales=qscales, force="kernel")),
-        time_ms(torch, lambda: ref.paged_attention_ref(
-            q, qpool, bt, cl, layer=0, kv_scales=qscales)),
-        *bound(nbytes, flops), None)
+    for B, tag in ((32, ""), (8, "@B=8")):
+        MB, ctx = 64, 1024
+        q = torch.randn((B, H, D), generator=g, device=dev).to(dt)
+        bt = torch.randint(0, NB, (B, MB), generator=g, device=dev,
+                           dtype=torch.int32)
+        cl = torch.full((B,), ctx, device=dev, dtype=torch.int32)
+        flops = 4 * B * ctx * H * D
+        small = 2 * B * H * D * e + B * MB * 4 + B * 4   # q, out, bt, cl
+        for name, kv, sc, kv_bytes in (
+                ("paged_attention", pool, None, e),
+                ("paged_attention_int8", qpool, qscales, 1)):
+            nbytes = (small + B * ctx * Hkv * D * 2 * kv_bytes
+                      + (0 if sc is None else B * MB * 2 * Hkv * 4))
+            layers = itertools.count()
+
+            def layer():
+                return 0 if B == 32 else next(layers) % L
+            out[name + tag] = (
+                time_ms(torch, lambda: ops.paged_attention(
+                    q, kv, bt, cl, layer=layer(), kv_scales=sc,
+                    force="kernel")),
+                time_ms(torch, lambda: ref.paged_attention_ref(
+                    q, kv, bt, cl, layer=layer(), kv_scales=sc)),
+                *bound(nbytes, flops), None)
     # the int8 tier's K/V store (plain PyTorch, not a kernel), one side of
     # one layer: a 512-token prefill chunk (its rescale gathers the whole
     # (T, P, Hkv, D) slab) and a 32-lane decode step
@@ -358,8 +433,8 @@ def make_prompts(cfg, n, plen, olen, seed):
              int(rng.integers(*olen))) for _ in range(n)]
 
 
-KERNEL_FAMILIES = (("paged_decode_kernel", "paged_attention"),
-                   ("flash_fwd_kernel", "flash_attention"),
+KERNEL_FAMILIES = (("paged_decode", "paged_attention"),
+                   ("flash_fwd", "flash_attention"),
                    ("kv_copy_kernel", "kv_copy"), ("Memcpy", "memcpy"),
                    ("nvjet", "matmul"), ("gemm", "matmul"),
                    ("cutlass", "matmul"))
@@ -558,7 +633,10 @@ def cli_run(torch):
         raise AssertionError(f"serve CLI decoded nothing: {row}")
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--timing"]):
+        log("usage: chip_smoke.py [--timing]")
+        return 2
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -587,8 +665,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # 3. kernel vs plain
     cfg = get_config("llama3-8b")
+    if argv:                             # --timing: phase 4 alone
+        print(json.dumps({"timing": kernel_timing(torch, ops, ref, quant,
+                                                  cfg)}), flush=True)
+        return 0
+
+    # 3. kernel vs plain
     errs = {}
     kernel_checks(torch, ops, ref, cfg, errs)
     int8_checks(torch, ops, ref, quant, cfg, errs)
@@ -676,12 +759,18 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         ms, pms, bms, by, lms = times[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
             launches=sum(c[name] for c in launches.values()),
             max_abs_err=errs[name], ms=ms, plain_ms=pms, bound_ms=bms,
-            bound_by=by, library_ms=lms))
+            bound_by=by, library_ms=lms)
+        if name + "@B=8" in times:     # the main path's own decode batch
+            ms, pms, bms, by, lms = times[name + "@B=8"]
+            entry["at_decode_batch_8"] = dict(
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                library_ms=lms)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -691,4 +780,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,10 +5,14 @@ Replaces ``flash_attention_tpu`` (``src/repro/kernels/flash_attention.py:72``)
 with ``csrc/flash_attention.cu``, and takes the call site of the jnp
 ``models/attention.py::flash_attention`` on the prefill path, whose queries
 start at ``q_offset = start`` over a pow2-padded block context. At prefill
-widths the work is bound by tensor-core FLOPs; this first kernel runs on
-the CUDA cores in fp32 (one block per 16-query tile and query head, K/V
-tiles of 32 keys through shared memory, only the kv tiles a tile's rows can
-see), and so sits well above that bound: wgmma and TMA are later work.
+widths the work is bound by tensor-core FLOPs. The wrapper's C entry runs
+one of two hand-written kernels by dtype: bf16 goes to the tensor cores
+(``wgmma`` m64n64k16 for Q.K^T and P.V, one warpgroup per 64-query tile,
+Q and P as register operands, 64-key K/V tiles by TMA into a two-stage
+ring of 128B-swizzled shared memory with an mbarrier per stage, the
+online softmax in registers); fp32 stays on the CUDA cores, since the lossless checks hold
+it to 1e-5, which TF32 would not. Both visit only the kv tiles a query
+tile can see.
 """
 from __future__ import annotations
 
@@ -69,6 +73,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head_dim {D} not in "
                          f"{_HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and (k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError("flash_attention kernel: bf16 k and v must be "
+                         "16-byte aligned (they are read by TMA)")
     off = Skv - Sq if q_offset is None else int(q_offset)
     scale = D ** -0.5 if softmax_scale is None else float(softmax_scale)
     out = torch.empty_like(q)

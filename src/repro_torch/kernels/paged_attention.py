@@ -4,12 +4,16 @@ Replaces ``paged_attention_tpu`` (``src/repro/kernels/paged_attention.py:84``)
 in both its modes with ``csrc/paged_attention.cu``: bf16/fp32, and the int8
 ``kv_scales`` mode whose dequant is fused into the kernel. Decode attention
 is bound by device-memory bytes (each context token's K and V read once),
-so the kernel reads every K/V byte once: one thread block per (kv head,
-sequence) whose warps are the query heads of that GQA group, sharing each
-K/V tile through shared memory, walking only the blocks the context
-covers, and addressing ``(row, layer)`` of the pool (and of the scales) by
-strides so no slice of either is copied. In the int8 mode the pool stays
-int8 in device memory and only the shared-memory tile is fp32.
+so the kernel reads every K/V byte once: the warps of a thread block are
+the query heads of one GQA group and share each K/V tile through shared
+memory, and ``(row, layer)`` of the pool (and of the scales) is addressed
+by strides so no slice of either is copied. Each (kv head, sequence) is
+served by a cluster of ``cluster_size(MB, P)`` CTAs that split its context
+(split-K, ``ref.split_bounds``: a function of the context length alone, so
+a sequence's output does not depend on its batch) and combine their
+partials through distributed shared memory, in one launch; each CTA
+streams its split through a ``cp.async`` ring. In the int8 mode the tile
+stays int8 in shared memory too.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import cluster_size, paged_attention_ref
 
 launches = 0        # bf16/fp32-mode kernel launches
 launches_int8 = 0   # int8-mode kernel launches (plain-version calls are
@@ -105,9 +109,9 @@ def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged_attention kernel: head_dim {D} not in "
                          f"{_HEAD_DIMS}")
-    if P > 32 or H // Hkv > 32:
-        raise ValueError(f"paged_attention kernel: block size {P} and group "
-                         f"{H // Hkv} must each be <= 32")
+    if P < 1 or 32 % P or H // Hkv > 32:
+        raise ValueError(f"paged_attention kernel: block size {P} must "
+                         f"divide 32 and group {H // Hkv} be <= 32")
     if kv_pool.data_ptr() % 16:
         raise ValueError("paged_attention kernel: the pool must be 16-byte "
                          "aligned")
@@ -118,15 +122,18 @@ def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
     s_side = P * s_tok
     s_row = kv_pool.stride(0)
     layer_off = layer * kv_pool.stride(1) if layered else 0
+    cluster = cluster_size(MB, P)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if not quant:
         fn = _build.function("paged_attention", "repro_paged_attention", [
             ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-            + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_longlong] * 4 + [ctypes.c_float] + [ctypes.c_int]
+            + [ctypes.c_void_p])
         _build.check(fn(q.data_ptr(), kv_pool.data_ptr(),
                         block_tables.data_ptr(), context_lens.data_ptr(),
                         out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, D, MB, P,
-                        s_row, layer_off, s_side, s_tok, D ** -0.5, stream),
+                        s_row, layer_off, s_side, s_tok, D ** -0.5, cluster,
+                        stream),
                      "paged_attention")
         launches += 1
         return out
@@ -134,11 +141,12 @@ def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
     s_layer_off = layer * kv_scales.stride(1) if layered else 0
     fn = _build.function("paged_attention", "repro_paged_attention_q", [
         ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-        + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_longlong] * 6 + [ctypes.c_float] + [ctypes.c_int]
+        + [ctypes.c_void_p])
     _build.check(fn(q.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
                     block_tables.data_ptr(), context_lens.data_ptr(),
                     out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, D, MB, P,
                     s_row, layer_off, s_side, s_tok, s_srow, s_layer_off,
-                    D ** -0.5, stream), "paged_attention int8")
+                    D ** -0.5, cluster, stream), "paged_attention int8")
     launches_int8 += 1
     return out

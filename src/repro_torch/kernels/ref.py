@@ -52,12 +52,45 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+# The paged kernel's split plan; csrc/paged_attention.cu compiles the same
+# two constants in (kSplitUnit, kMaxSplits) and a CPU test holds them equal.
+SPLIT_UNIT = 128    # tokens: the granule of a split of the paged kernel
+MAX_SPLITS = 8      # splits of one context at most: CTAs in a cluster
+
+
+def split_tokens(ctx: int, unit: int = SPLIT_UNIT,
+                 max_splits: int = MAX_SPLITS) -> int:
+    """Tokens in each split of a context of ``ctx`` tokens: the fewest
+    multiples of ``unit`` that cover it in ``max_splits`` splits."""
+    return unit * max(1, -(-ctx // (unit * max_splits)))
+
+
+def split_bounds(ctx: int, unit: int = SPLIT_UNIT,
+                 max_splits: int = MAX_SPLITS) -> list:
+    """[(lo, hi)] token bounds of the non-empty splits of one context, in
+    split order. A function of ``ctx`` and the two constants only, so a
+    sequence gets the same splits in whatever batch it sits."""
+    tps = split_tokens(ctx, unit, max_splits)
+    return [(lo, min(ctx, lo + tps)) for lo in range(0, ctx, tps)]
+
+
+def cluster_size(max_blocks: int, block_size: int, unit: int = SPLIT_UNIT,
+                 max_splits: int = MAX_SPLITS) -> int:
+    """CTAs per (kv head, sequence) for a block table ``max_blocks`` wide:
+    the power of two at or above the most splits any context of at most
+    ``max_blocks * block_size`` tokens gets (at most ``max_splits``).
+    Shorter contexts leave the trailing CTAs of their cluster empty."""
+    n = min(max_splits, max(1, -(-max_blocks * block_size // unit)))
+    return 1 << (n - 1).bit_length()
+
+
 def paged_attention_ref(q: torch.Tensor, kv_pool: torch.Tensor,
                         block_tables: torch.Tensor,
                         context_lens: torch.Tensor, *,
                         layer: int = -1,
-                        kv_scales: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        kv_scales: Optional[torch.Tensor] = None,
+                        n_splits: int = 1,
+                        split_unit: Optional[int] = None) -> torch.Tensor:
     """Decode attention over a block-first paged pool.
 
     q: (B, H, D); kv_pool: (NB, 2, P, Hkv, D), or the layered
@@ -66,6 +99,14 @@ def paged_attention_ref(q: torch.Tensor, kv_pool: torch.Tensor,
     (NB, L, 2, Hkv) when layered, fp32) marks an int8 pool: each gathered
     (P, D) tile is dequantized in fp32 by its (side, kv head) scale before
     attending.
+
+    ``n_splits > 1`` computes it as the split-K kernel splits it: each context
+    is cut by ``split_bounds(ctx, split_unit, n_splits)`` (``split_unit``
+    defaults to the block size), each split gives its partial (max m, sum
+    l, unnormalized output), and the partials combine in split order with
+    weights exp(m_s - max m), empty splits skipped. The kernel's own plan
+    is ``n_splits=MAX_SPLITS, split_unit=SPLIT_UNIT``. One split (the
+    default) is the single softmax.
     """
     B, H, D = q.shape
     MB = block_tables.shape[1]
@@ -81,10 +122,32 @@ def paged_attention_ref(q: torch.Tensor, kv_pool: torch.Tensor,
     qg = q.reshape(B, Hkv, H // Hkv, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, k) / (D ** 0.5)
     pos = torch.arange(MB * P, device=q.device)[None]
-    valid = (pos < context_lens.to(q.device)[:, None].long())[:, None, None]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    ctx = context_lens.to(q.device).long()
+    valid = (pos < ctx[:, None])[:, None, None]
+    if n_splits == 1:
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", p, v)
+        return out.reshape(B, H, D).to(q.dtype)
+    unit = P if split_unit is None else split_unit
+    tps = torch.tensor([split_tokens(int(c), unit, n_splits) for c in ctx],
+                       device=q.device)
+    split = (pos // tps[:, None])[:, None, None]       # (B, 1, 1, MB*P)
+    parts = []
+    for i in range(n_splits):
+        inside = valid & (split == i)
+        si = torch.where(inside, s, torch.full_like(s, -float("inf")))
+        m = si.amax(dim=-1)                            # -inf: empty split
+        p = torch.exp(si - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bkgs,bskd->bkgd", p, v)))
+    mmax = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:
+        w = torch.where(torch.isinf(m), 0.0, torch.exp(m - mmax))
+        num = num + w[..., None] * acc
+        den = den + w * l
+    out = num / den.clamp(min=1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
 
 

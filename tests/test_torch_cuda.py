@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions over a sweep of
-small shapes (the paged kernel in both its modes, ``kv_copy`` on pool and
-scale rows), ``quant_store_tokens`` on the card against the CPU, and the
-paged runner on the card against itself on the CPU, bf16 and int8 KV.
+small shapes (the paged kernel in both its modes, its split-K across
+contexts that cross split boundaries and its batch invariance, the bf16
+tensor-core flash kernel, ``kv_copy`` on pool and scale rows),
+``quant_store_tokens`` on the card against the CPU, and the paged runner
+on the card against itself on the CPU, bf16 and int8 KV.
 These need a CUDA card (nvcc builds the kernels at first use); without one
 every test here skips. On the card:
 
@@ -42,6 +44,8 @@ def randn(gen, shape, dtype):
     (2, 8, 8, 32, 8, 3, 0),        # MHA, flat pool
     (5, 8, 1, 64, 16, 5, 2),       # MQA
     (4, 16, 2, 128, 32, 2, 1),     # group of 8, 32-token blocks
+    (2, 32, 2, 64, 16, 9, 2),      # group of 16: all rows of the mma tile
+    (2, 32, 1, 32, 8, 9, 0),       # group of 32: bf16 on the CUDA cores
 ])
 def test_paged_attention_kernel(gen, dtype, B, H, Hkv, D, P, MB, L):
     NB = B * MB + 2
@@ -115,6 +119,97 @@ def test_paged_attention_int8_kernel(gen, dtype, B, H, Hkv, D, P, MB, L):
                                    kv_scales=scales)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("Sq", [1, 37, 64, 512])
+def test_flash_attention_tensor_core_kernel(gen, D, Sq):
+    """The bf16 kernel (wgmma) against its plain version: Skv not a
+    multiple of the 64-key tile (two tiles or more, so state carried from
+    tile to tile is checked), q_offset != Skv - Sq, window off and on, GQA
+    groups of 1, 4 and 8."""
+    off = 45
+    Skv = off + Sq + 23
+    for G in (1, 4, 8):
+        Hkv = 2
+        q = randn(gen, (1, Sq, G * Hkv, D), torch.bfloat16)
+        k = randn(gen, (1, Skv, Hkv, D), torch.bfloat16)
+        v = randn(gen, (1, Skv, Hkv, D), torch.bfloat16)
+        for window in (0, 100):
+            got = ops.flash_attention(q, k, v, causal=True, window=window,
+                                      q_offset=off, force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           window=window, q_offset=off)
+            torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+
+
+def paged_case(gen, mode, B, ctxs, layered, P=16, H=32, Hkv=8, D=128, L=2,
+               NB=1026):
+    """q, pool (int8 with scales in the "int8" mode), a block table of
+    random rows as wide as the longest context, and those contexts."""
+    dt = torch.float32 if mode == "fp32" else torch.bfloat16
+    MB = -(-max(ctxs) // P)
+    lead = (NB, L) if layered else (NB,)
+    q = randn(gen, (B, H, D), dt)
+    scales = None
+    if mode == "int8":
+        pool = torch.randint(-127, 128, lead + (2, P, Hkv, D), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        scales = torch.rand(lead + (2, Hkv), generator=gen,
+                            device="cuda") * 0.05 + 1e-3
+    else:
+        pool = randn(gen, lead + (2, P, Hkv, D), dt)
+    bt = torch.randint(0, NB - 1, (B, MB), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cl = torch.tensor(ctxs, device="cuda", dtype=torch.int32)
+    bt[cl == 1] = NB - 1                                 # padded lanes
+    return q, pool, scales, bt, cl, (L - 1 if layered else -1), dt
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("layered", [True, False])
+def test_paged_attention_split_kernel(gen, mode, B, layered):
+    """Split-K over a cluster: contexts from 1 to past 1024 that end on,
+    before and after split boundaries (128-token units up to 1024, then
+    256-token splits), with empty trailing splits, at llama3-8b's heads."""
+    edges = [1, 31, 32, 127, 128, 129, 500, 1024, 1025, 1100, 77, 256]
+    ctxs = [edges[i % len(edges)] for i in range(B)] if B > 1 else [1025]
+    q, pool, sc, bt, cl, layer, dt = paged_case(gen, mode, B, ctxs, layered)
+    ops.reset_launch_counts()
+    got = ops.paged_attention(q, pool, bt, cl, layer=layer, kv_scales=sc,
+                              force="kernel")
+    counts = ops.launch_counts()
+    assert counts["paged_attention_int8" if mode == "int8"
+                  else "paged_attention"] == 1
+    want = ref.paged_attention_ref(q, pool, bt, cl, layer=layer,
+                                   kv_scales=sc)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL[dt])
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+def test_paged_attention_is_batch_invariant(gen, mode):
+    """One sequence's output is bitwise the same alone (a table just wide
+    enough: a cluster of 4), in a batch of 8 and in a batch of 32 with
+    longer companions (clusters of 8, wider tables, other lanes)."""
+    P, ctx = 16, 300
+    q, pool, sc, bt, cl, layer, dt = paged_case(
+        gen, mode, 32, [ctx] + [2000 - 37 * i for i in range(31)], True)
+    nblk = -(-ctx // P)
+    outs = []
+    for B, lane in ((1, 0), (8, 5), (32, 17)):
+        idx = torch.arange(B, device="cuda")
+        idx[lane], idx[0] = 0, lane
+        qb, btb, clb = q[idx].contiguous(), bt[idx].contiguous(), cl[idx]
+        if B == 1:
+            btb = btb[:, :nblk].contiguous()
+        else:
+            btb = btb[:, :max(nblk, -(-int(clb.max()) // P))].contiguous()
+        out = ops.paged_attention(qb, pool, btb, clb.contiguous(),
+                                  layer=layer, kv_scales=sc, force="kernel")
+        outs.append(out[lane])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
 def test_quant_store_tokens_on_the_card_matches_the_cpu(gen):
