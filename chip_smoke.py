@@ -13,7 +13,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernel vs plain: each kernel (and the int8 mode of paged attention)
    against its plain PyTorch version on the card, at llama3-8b's
    full-width shapes, in bf16 and fp32, edge cases included (flash: a
-   37-row chunk under a window; paged: B=8 with empty splits), each within
+   37-row chunk under a window, the dense path's whole-prompt prefill at
+   llama3-8b's and the reduced gemma3's heads; paged: B=8 with empty
+   splits), each within
    a stated tolerance; the paged kernel's output for one sequence bitwise
    equal alone and in a batch; ``quant_store_tokens`` on the card against
    the CPU;
@@ -30,11 +32,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
 6. lossless: the same two runs with ``llama3-8b.reduced()`` in fp32 must
    emit equal token streams, in bf16 and in int8;
 7. CLI: ``python -m repro_torch.launch.serve --paged-runner --kv-dtype
-   int8`` as a subprocess on the card.
+   int8`` as a subprocess on the card;
+8. server: llama3-8b at full width behind ``AsyncServingEngine(pace=True)``
+   and ``InferenceServer`` in process, with phase 5's tight HBM; 8
+   concurrent streaming HTTP clients on phase 5's prompts and a ninth that
+   closes its socket mid-stream. Client-side TTFT/TBT, the event loop's
+   lag and the device busy share are printed; /healthz and /readyz answer
+   200, every stream ends "length" with its tokens, the ninth request ends
+   "aborted", requests rotated, the HBM blocks are all free after the
+   drain, shutdown exits 0, and all three kernels launched during the load;
+9. supervisor: ``python -m repro_torch.launch.server_main --paged-runner``
+   as a subprocess: one stream read to its end, then SIGTERM and rc 0; the
+   server's exit line reports its kernel launches, and flash and paged
+   attention must have launched;
+10. dense path: ``RealExecutor`` behind ``ServingEngine`` on phase 5's
+   prompts at full width in bf16, with ample HBM and with phase 5's tight
+   HBM (equal streams, flash launched; the top-1 agreement with phase 5's
+   paged run is printed), then gemma3-1b.reduced() at 6 layers in fp32,
+   whose local layers have a 32-token window: lossless under rotation, and
+   the card's streams equal the CPU's from the same weights.
 
-It prints a JSON line of kernel results, then the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
-JAX and nothing of the JAX package.
+It prints a JSON line of kernel results (each with its launches per
+main path), then the card's name and power limit, and last ``{"ok":
+true, "device": {...}}``. It imports nothing of JAX and nothing of the
+JAX package.
 
 ``python3 chip_smoke.py --timing`` runs phases 1, 2 and 4 only and prints
 phase 4's times as one JSON line ``{"timing": {...}}``: the quick way to
@@ -50,6 +71,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -103,7 +125,10 @@ def check(name, dtype, case, got, want, tol, errs):
 # ---------------------------------------------------------------- phase 3
 
 def kernel_checks(torch, ops, ref, cfg, errs, dev="cuda"):
-    """Each kernel against its plain version at llama3-8b's widths."""
+    """Each kernel against its plain version at llama3-8b's widths (flash
+    also at the reduced gemma3's, which the dense path runs)."""
+    from repro_torch.configs import get_config
+    gem = get_config("gemma3-1b").reduced()
     L, Hkv, D, H = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     P, NB, staging = 16, 1024, 64
     rows = NB + staging + 1
@@ -163,23 +188,33 @@ def kernel_checks(torch, ops, ref, cfg, errs, dev="cuda"):
               errs)
         batch_invariance(torch, ops, q, pool, bt, cl, L - 1, None, dname)
         del pool
-        # flash attention: a 512-token chunk over a 1024-token context at
-        # q_offset 300 (!= Skv - Sq), then a 256-token window, tail-aligned,
-        # then a 37-row chunk at q_offset 700 over 1000 keys (not a multiple
-        # of the 64-key tile) under a 128-token window
-        for T, Skv, off, win in ((512, 1024, 300, 0), (512, 1024, None, 256),
-                                 (37, 1000, 700, 128)):
-            q = torch.randn((1, T, H, D), generator=g, device=dev).to(dt)
-            k = torch.randn((1, Skv, Hkv, D), generator=g, device=dev).to(dt)
-            v = torch.randn((1, Skv, Hkv, D), generator=g, device=dev).to(dt)
+        # flash attention, the paged runner's chunks: a 512-token chunk
+        # over a 1024-token context at q_offset 300 (!= Skv - Sq), then a
+        # 256-token window, tail-aligned, then a 37-row chunk at q_offset 700
+        # over 1000 keys (not a multiple of the 64-key tile) under a
+        # 128-token window; then the dense path's whole-prompt prefill
+        # (Sq == Skv, q_offset 0): a ragged 731-token prompt at llama3-8b's
+        # heads, and a 53-token prompt at the reduced gemma3's heads under
+        # its window
+        for T, Skv, off, win, heads in (
+                (512, 1024, 300, 0, (H, Hkv, D)),
+                (512, 1024, None, 256, (H, Hkv, D)),
+                (37, 1000, 700, 128, (H, Hkv, D)),
+                (731, 731, 0, 0, (H, Hkv, D)),
+                (53, 53, 0, gem.attn.sliding_window,
+                 (gem.num_heads, gem.num_kv_heads, gem.head_dim))):
+            h, hkv, d = heads
+            q = torch.randn((1, T, h, d), generator=g, device=dev).to(dt)
+            k = torch.randn((1, Skv, hkv, d), generator=g, device=dev).to(dt)
+            v = torch.randn((1, Skv, hkv, d), generator=g, device=dev).to(dt)
             got = ops.flash_attention(q, k, v, causal=True, window=win,
                                       q_offset=off, force="kernel")
             want = ref.flash_attention_ref(q, k, v, causal=True, window=win,
                                            q_offset=off)
             torch.cuda.synchronize()
             check("flash_attention", dname,
-                  f"T={T} Skv={Skv} q_offset={off} window={win}", got, want,
-                  tol, errs)
+                  f"T={T} Skv={Skv} q_offset={off} window={win} H/Hkv/D="
+                  f"{h}/{hkv}/{d}", got, want, tol, errs)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -441,14 +476,17 @@ KERNEL_FAMILIES = (("paged_decode", "paged_attention"),
 
 
 def device_time_by_family(prof):
-    """Device milliseconds of a torch.profiler trace by kernel family."""
+    """Device milliseconds of a torch.profiler trace by kernel family, read
+    from the raw trace events (``prof.events()`` would first build the
+    whole host event tree, which takes tens of seconds for a serving run)."""
     from torch.autograd import DeviceType
     out = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        fam = next((f for k, f in KERNEL_FAMILIES if k in e.name), "other")
-        out[fam] = out.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+        name = e.name()
+        fam = next((f for k, f in KERNEL_FAMILIES if k in name), "other")
+        out[fam] = out.get(fam, 0.0) + e.duration_ns() / 1e6
     return out
 
 
@@ -633,6 +671,398 @@ def cli_run(torch):
         raise AssertionError(f"serve CLI decoded nothing: {row}")
 
 
+# ---------------------------------------------------------------- phase 8
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sse_stream(port, body, out, stop_after=None, timeout=300.0):
+    """POST /v1/generate and read its SSE events as they arrive, each
+    stamped with the client's clock on receipt; ``stop_after`` events, then
+    close the socket (a client that goes away mid-stream). Fills ``out``
+    with t0 (send time), events and stamps."""
+    import socket
+    payload = json.dumps(body).encode()
+    head = (f"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+            f"Content-Length: {len(payload)}\r\n\r\n").encode()
+    buf, pos, events, stamps = b"", 0, [], []
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as s:
+        out["t0"] = time.perf_counter()
+        s.sendall(head + payload)
+        while chunk := s.recv(65536):
+            now = time.perf_counter()
+            buf += chunk
+            while (a := buf.find(b"data: ", pos)) != -1:
+                b = buf.find(b"\n\n", a)
+                if b == -1:
+                    break
+                events.append(json.loads(buf[a + 6:b]))
+                stamps.append(now)
+                pos = b + 2
+            if events and events[-1]["finished"]:
+                break
+            if stop_after is not None and len(events) >= stop_after:
+                break
+    out.update(events=events, stamps=stamps)
+
+
+def http_get(port, path):
+    import socket
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.sendall(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+        raw = b""
+        while chunk := s.recv(65536):
+            raw += chunk
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), body
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else float("nan")
+
+
+def client_latencies(results):
+    """Client-side TTFT per request (send to first token event) and TBT
+    (gap between token events over the tokens the later one carries), wall
+    seconds, plus the share of TBT gaps under 1 ms (events that arrived in
+    one burst)."""
+    ttft, tbt = [], []
+    for r in results:
+        tok = [(t, e["new_tokens"]) for t, e in zip(r["stamps"], r["events"])
+               if e["new_tokens"] > 0]
+        if not tok:
+            continue
+        ttft.append(tok[0][0] - r["t0"])
+        tbt += [(b[0] - a[0]) / b[1] for a, b in zip(tok, tok[1:])]
+    burst = sum(g < 1e-3 for g in tbt) / max(len(tbt), 1)
+    return ttft, tbt, burst
+
+
+def server_phase(torch, cfg, prompts):
+    """The HTTP front door at full width, in process: EngineCore with the
+    paged runner on the card behind AsyncServingEngine(pace=True) and
+    InferenceServer, as serve_main composes them; 8 concurrent streaming
+    clients on S1's prompts and a ninth that leaves mid-stream. HBM holds
+    the two largest requests (phase 5's run (b)), so RotaSched rotates
+    under the load and ``kv_copy`` runs from the driver thread."""
+    import asyncio
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import GH200, ServingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.async_engine import AsyncServingEngine
+    from repro_torch.serving.core import EngineCore
+    from repro_torch.serving.server import InferenceServer, ServerConfig
+    t_phase = time.perf_counter()
+    need = sorted((-(-(len(ids) + n) // 16) for ids, n in prompts),
+                  reverse=True)
+    sv = ServingConfig(paged_runner=True, block_size=16, prefill_chunk=512,
+                       num_hbm_blocks=need[0] + need[1])
+    core = EngineCore(cfg, sv, GH200, runner_cfg=cfg, device="cuda")
+    free0 = core.kv.hbm_free_blocks
+    box, ready, lags = {}, threading.Event(), []
+
+    async def serve():
+        loop = asyncio.get_running_loop()
+        service = AsyncServingEngine(core, pace=True)
+        server = InferenceServer(service, ServerConfig(port=0, device="cuda"))
+        await service.start()
+        await server.start()
+        box.update(loop=loop, server=server, service=service)
+        ready.set()
+
+        async def lag_probe():          # how late the loop wakes up
+            while True:
+                t = loop.time()
+                await asyncio.sleep(0.005)
+                lags.append(loop.time() - t - 0.005)
+        probe = asyncio.ensure_future(lag_probe())
+        try:
+            box["code"] = await server.run_until_shutdown()
+        finally:
+            probe.cancel()
+
+    th = threading.Thread(target=lambda: asyncio.run(serve()), daemon=True)
+    th.start()
+    if not ready.wait(120):
+        raise AssertionError("server phase: the server did not start")
+    t_setup = time.perf_counter() - t_phase
+    port, loop = box["server"].port, box["loop"]
+    for path in ("/healthz", "/readyz"):
+        status, body = http_get(port, path)
+        if status != 200:
+            raise AssertionError(f"{path} answered {status}: {body!r}")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    rng = np.random.default_rng(9)
+    quitter = [int(x) for x in rng.integers(1, cfg.vocab_size, 300)]
+    bodies = [dict(prompt_ids=ids, max_tokens=n, ignore_eos=True,
+                   slo_class="interactive" if i % 2 else "standard")
+              for i, (ids, n) in enumerate(prompts)]
+    results = [{} for _ in range(len(bodies) + 1)]
+    threads = [threading.Thread(target=sse_stream, args=(port, b, r))
+               for b, r in zip(bodies, results)]
+    threads.append(threading.Thread(target=sse_stream, args=(
+        port, dict(prompt_ids=quitter, max_tokens=64), results[-1], 3)))
+    lags.clear()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    lag_ms = [x * 1e3 for x in lags]
+    deadline = time.monotonic() + 120
+    while core.has_work and time.monotonic() < deadline:
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    t_trace = time.perf_counter()
+    prof.stop()
+    busy = sum(device_time_by_family(prof).values())
+    t_trace = time.perf_counter() - t_trace
+    launches = ops.launch_counts()
+    status, body = http_get(port, "/v1/metrics")
+    row = json.loads(body)
+    loop.call_soon_threadsafe(box["server"].request_shutdown)
+    th.join(120)
+    if th.is_alive() or box.get("code") != 0:
+        raise AssertionError(f"server phase: shutdown gave {box.get('code')}")
+    for (ids, n), r in zip(prompts, results[:-1]):
+        last = r["events"][-1] if r.get("events") else {}
+        if not (last.get("finished") and last.get("finish_reason") == "length"
+                and last.get("tokens_generated") == n
+                and len(last.get("token_ids") or []) == n):
+            raise AssertionError(f"server phase: stream ended {last}")
+    rid = results[-1]["events"][0]["req_id"]
+    quit_req = next(r for r in core.submitted if r.req_id == rid)
+    if quit_req.finish_reason != "aborted":
+        raise AssertionError(f"server phase: the client that left has its "
+                             f"request {quit_req.finish_reason!r}")
+    rotations = core.stats.active_rotations + core.stats.passive_preemptions
+    if not rotations:
+        raise AssertionError("server phase: nothing rotated")
+    if core.kv.hbm_free_blocks != free0:
+        raise AssertionError(f"server phase: {core.kv.hbm_free_blocks} HBM "
+                             f"blocks free after the drain, {free0} before")
+    idle = [k for k in ("flash_attention", "paged_attention", "kv_copy")
+            if not launches[k]]
+    if idle:
+        raise AssertionError(f"server phase: kernels never launched {idle}")
+    ttft, tbt, burst = client_latencies(results[:-1])
+    st = core.executor.store
+    log(f"server phase: 8 streams + 1 that left at its 3rd event, all "
+        f"finished in {wall:.3f} s wall; hbm={sv.num_hbm_blocks} blocks, "
+        f"rotations {rotations}, rows d2h {st.d2h_rows} h2d {st.h2d_rows}, "
+        f"engine steps "
+        f"{box['service'].steps}; kernel launches {launches}")
+    log(f"server phase, client side (wall s): TTFT median {pct(ttft, 50):.4f} "
+        f"p99 {pct(ttft, 99):.4f}; TBT median {pct(tbt, 50):.5f} p99 "
+        f"{pct(tbt, 99):.5f} over {len(tbt)} gaps, {burst:.3f} of them "
+        f"under 1 ms (burst delivery)")
+    log(f"server phase, event-loop lag of a 5 ms sleep (ms): median "
+        f"{pct(lag_ms, 50):.3f} p99 {pct(lag_ms, 99):.3f} max "
+        f"{max(lag_ms, default=float('nan')):.3f} over {len(lag_ms)} wakes")
+    log(f"server phase, device busy {busy:.1f} ms of {wall * 1e3:.1f} ms "
+        f"wall ({busy / (wall * 1e3):.3f})")
+    keys = ("n", "ttft_attainment", "tbt_attainment", "p50_ttft", "p99_ttft",
+            "p50_tbt", "p99_tbt", "total_time_s", "n_aborted")
+    log("server phase, /v1/metrics (engine clock: the GH200 model): "
+        + json.dumps({k: row.get(k) for k in keys} | {
+            "server": row.get("server")}, sort_keys=True))
+    log(f"phase 8 wall: {time.perf_counter() - t_phase:.2f} s (engine, "
+        f"weights and server {t_setup:.2f} s, the load {wall:.2f} s, trace "
+        f"processing {t_trace:.2f} s)")
+    del core, st, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+
+def supervisor_phase():
+    """``python -m repro_torch.launch.server_main --paged-runner`` as a
+    user runs it on the card: one stream read to its end, then SIGTERM and
+    a clean drain. Returns the kernel launches the server child reports in
+    its exit line (its whole life, which is this path alone)."""
+    import os
+    import signal
+    import socket
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root / "src"), os.environ.get("PYTHONPATH")) if p))
+    port = free_port()
+    drain = 15.0
+    errf = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.server_main",
+         "--paged-runner", "--port", str(port), "--drain-timeout", str(drain)],
+        cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=errf, text=True)
+    rc, out = None, {}
+    try:
+        deadline = time.monotonic() + 180
+        while proc.poll() is None and time.monotonic() < deadline:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=5).close()
+                break
+            except OSError:
+                time.sleep(0.2)
+        else:
+            raise AssertionError("supervisor: the server never listened")
+        t_up = time.perf_counter() - t0
+        ids = [int(x) for x in np.random.default_rng(4).integers(1, 256, 40)]
+        sse_stream(port, dict(prompt_ids=ids, max_tokens=16), out)
+        last = out["events"][-1]
+        if not (last["finished"] and last["tokens_generated"] == 16
+                and len(last["token_ids"]) == 16):
+            raise AssertionError(f"supervisor: stream ended {last}")
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(drain + 30)
+        t_drain = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        errf.seek(0)
+        err = errf.read()
+        errf.close()
+        if rc is None:
+            log(f"supervisor's stderr: {err[-3000:]}")
+    if rc != 0 or '"event": "launcher_exit", "code": 0' not in err:
+        raise AssertionError(f"supervisor exited {rc}: {err[-3000:]}")
+    exits = [json.loads(line) for line in err.splitlines()
+             if '"event": "server_exit"' in line]
+    launches = exits[-1]["kernel_launches"] if exits else {}
+    log(f"supervisor: up in {t_up:.2f} s, a 16-token stream of "
+        f"{len(out['events'])} events, tokens {last['token_ids']}; SIGTERM "
+        f"-> rc 0 in {t_drain:.2f} s (drain timeout {drain:g} s); the "
+        f"server's kernel launches {launches}")
+    idle = [k for k in ("flash_attention", "paged_attention")
+            if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"supervisor: kernels never launched {idle}")
+    log(f"phase 9 wall: {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+# --------------------------------------------------------------- phase 10
+
+def dense_run(torch, cfg, prompts, params, sv_kw, hbm, device, label):
+    """The dense per-request executor behind ServingEngine on ``device``
+    with ``hbm`` blocks: its streams, rotations and wall."""
+    from repro_torch.configs import GH200, ServingConfig
+    from repro_torch.core.types import SamplingParams
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.executor import RealExecutor
+    eng = ServingEngine(cfg, ServingConfig(num_hbm_blocks=hbm, **sv_kw),
+                        GH200, real_executor=RealExecutor(
+                            cfg, device=device, params=params))
+    handles = [eng.add_request(
+        prompt_ids=ids, sampling_params=SamplingParams(max_tokens=n))
+        for ids, n in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = {h.req_id: list(h.request.generated_ids) for h in handles}
+    for (_, n), s in zip(prompts, streams.values()):
+        if len(s) != n or not all(0 <= t < cfg.vocab_size for t in s):
+            raise AssertionError(f"{label}: a stream of {len(s)} tokens, {n} "
+                                 f"asked")
+    rot = eng.stats.active_rotations + eng.stats.passive_preemptions
+    ntok = sum(len(s) for s in streams.values())
+    log(f"{label} hbm={hbm} blocks on {device}: wall {wall:.3f} s, {ntok} "
+        f"tokens, {ntok / wall:.2f} tok/s, rotations {rot}")
+    del eng, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(streams=streams, rotations=rot, wall_s=wall)
+
+
+def dense_runs(torch, cfg, prompts, params, sv_kw, hbm_ample, hbm_tight,
+               label):
+    """The dense executor on the card: (a) ample HBM, (b) tight HBM, which
+    forces rotation through swap_out/swap_in; equal streams asserted."""
+    out = {run: dense_run(torch, cfg, prompts, params, sv_kw, hbm, "cuda",
+                          f"{label} run ({run})")
+           for run, hbm in (("a", hbm_ample), ("b", hbm_tight))}
+    if out["b"]["rotations"] == 0:
+        raise AssertionError(f"{label} run (b) did not rotate")
+    if out["a"]["streams"] != out["b"]["streams"]:
+        raise AssertionError(f"{label}: token streams differ under rotation")
+    log(f"lossless: {label} token streams equal with and without rotation")
+    return out
+
+
+def dense_phase(torch, cfg, prompts, paged_a):
+    """The dense path: llama3-8b at full width in bf16, then
+    gemma3-1b.reduced() at 6 layers in fp32 (windows of 32, one global
+    layer, prompts longer than the window)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_lm_params
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    # (b): HBM for the two largest requests, as phase 5's run (b)
+    need = sorted((-(-(len(ids) + n) // 16) for ids, n in prompts),
+                  reverse=True)
+    ops.reset_launch_counts()
+    full = dense_runs(torch, cfg, prompts, params,
+                      dict(block_size=16, prefill_chunk=512), 1024,
+                      need[0] + need[1], "llama3-8b dense bf16")
+    launches = ops.launch_counts()
+    log(f"dense path kernel launches: {launches}")
+    if not launches["flash_attention"]:
+        raise AssertionError("dense path: flash_attention never launched")
+    same = total = 0
+    for rid, s in full["a"]["streams"].items():
+        for x, y in zip(s, paged_a["streams"][rid]):
+            same += x == y
+            total += 1
+    log(f"llama3-8b bf16 dense run (a) vs paged run (a) of phase 5, same "
+        f"weights (reported, not asserted): {same / max(total, 1):.4f} of "
+        f"tokens agree")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gcfg = dataclasses.replace(get_config("gemma3-1b").reduced(),
+                               dtype="float32", num_layers=6)
+    gprompts = make_prompts(gcfg, 5, (40, 61), (10, 17), seed=3)
+    gparams = init_lm_params(gcfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    # (b): 25 blocks rotate 28 times on the model's clock; at 29 the
+    # scheduler livelocks on these requests (ROADMAP.md §3)
+    gsv = dict(block_size=4, prefill_chunk=8, max_model_len=128,
+               num_dram_blocks=512)
+    glabel = "gemma3-1b-reduced 6 layers fp32 dense"
+    gruns = dense_runs(torch, gcfg, gprompts, gparams, gsv, 4096, 25, glabel)
+    # the same weights on the CPU (the plain flash version), run (b): the
+    # card's flash kernel, window and global layer, must give its streams
+    cpu_params = {part: ([{k: v.cpu() for k, v in layer.items()}
+                          for layer in tree] if part == "layers"
+                         else {k: v.cpu() for k, v in tree.items()})
+                  for part, tree in gparams.items()}
+    cpu = dense_run(torch, gcfg, gprompts, cpu_params, gsv, 25, "cpu",
+                    f"{glabel} run (b)")
+    if cpu["streams"] != gruns["b"]["streams"]:
+        raise AssertionError(f"{glabel}: the card's streams differ from the "
+                             f"CPU's")
+    log(f"{glabel}: the card's streams equal the CPU's from the same "
+        f"weights")
+    log(f"phase 10 wall: {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main(argv) -> int:
     if argv not in ([], ["--timing"]):
         log("usage: chip_smoke.py [--timing]")
@@ -750,6 +1180,15 @@ def main(argv) -> int:
     # 7. the port's serving CLI on the card, as a user runs it
     cli_run(torch)
 
+    # 8. the HTTP front door at full width, in process
+    launches["server"] = server_phase(torch, cfg, prompts)
+
+    # 9. the supervised launcher as a user runs it
+    launches["supervisor"] = supervisor_phase()
+
+    # 10. the dense per-request executor: full width bf16, reduced gemma3
+    launches["dense"] = dense_phase(torch, cfg, prompts, full["bf16"]["a"])
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -762,9 +1201,15 @@ def main(argv) -> int:
         entry = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
-            launches=sum(c[name] for c in launches.values()),
+            launches=sum(c.get(name, 0) for c in launches.values()),
             max_abs_err=errs[name], ms=ms, plain_ms=pms, bound_ms=bms,
-            bound_by=by, library_ms=lms)
+            bound_by=by, library_ms=lms,
+            launches_by_phase={phase: c.get(name, 0) for phase, c in
+                               (("5_bf16", launches["bf16"]),
+                                ("5_int8", launches["int8"]),
+                                ("8_server", launches["server"]),
+                                ("9_supervisor", launches["supervisor"]),
+                                ("10_dense", launches["dense"]))})
         if name + "@B=8" in times:     # the main path's own decode batch
             ms, pms, bms, by, lms = times[name + "@B=8"]
             entry["at_decode_batch_8"] = dict(

@@ -6,9 +6,16 @@ started together, into its own shared library with a plain C interface
 ``ctypes`` loads. The digest covers the sources and the flags, so an edit
 rebuilds and an unchanged tree reuses what it built. A failed build raises
 ``RuntimeError`` carrying nvcc's stderr. Nothing here runs at import time.
+
+The CUDA runtime launches on the calling thread's current device, which
+is device 0 in a thread that never chose one, such as the async engine's
+driver thread. A launch there for tensors on ``cuda:N`` (N != 0: a
+replica on another card) would go to the wrong device, so the wrappers
+launch under ``on_device(tensor.device)``; on one card it never switches.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -16,7 +23,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -101,6 +110,23 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
             fn.restype = ctypes.c_int
             _funcs[key] = fn
     return fn
+
+
+_one_card: Optional[bool] = None     # settled at the first launch
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is this thread's current CUDA device.
+    On one card there is never anything to switch, which the count of
+    cards settles once; with more, one ``current_device()`` read per
+    launch decides."""
+    global _one_card
+    if _one_card is None:
+        _one_card = torch.cuda.device_count() == 1
+    if _one_card or torch.cuda.current_device() == device.index:
+        return _NO_SWITCH
+    return torch.cuda.device(device)
 
 
 def check(err: int, what: str) -> None:

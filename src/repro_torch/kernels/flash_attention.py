@@ -85,8 +85,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D, off, int(causal),
-                    int(window), scale, stream), "flash_attention")
+    with _build.on_device(q.device):
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), _DTYPES[q.dtype], B, Sq, Skv, H, Hkv,
+                        D, off, int(causal), int(window), scale, stream),
+                     "flash_attention")
     launches += 1
     return out

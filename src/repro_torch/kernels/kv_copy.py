@@ -78,7 +78,9 @@ def kv_copy_kernel(pool: torch.Tensor, src: np.ndarray,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p])
     stream = torch.cuda.current_stream(pool.device).cuda_stream
-    _build.check(fn(pool.data_ptr(), idx.data_ptr(), idx.data_ptr() + 4 * n,
-                    n, row_bytes, stream), "kv_copy")
+    with _build.on_device(pool.device):
+        _build.check(fn(pool.data_ptr(), idx.data_ptr(),
+                        idx.data_ptr() + 4 * n, n, row_bytes, stream),
+                     "kv_copy")
     launches += 1
     return pool

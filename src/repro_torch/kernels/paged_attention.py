@@ -129,12 +129,13 @@ def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
             ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 4 + [ctypes.c_float] + [ctypes.c_int]
             + [ctypes.c_void_p])
-        _build.check(fn(q.data_ptr(), kv_pool.data_ptr(),
-                        block_tables.data_ptr(), context_lens.data_ptr(),
-                        out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, D, MB, P,
-                        s_row, layer_off, s_side, s_tok, D ** -0.5, cluster,
-                        stream),
-                     "paged_attention")
+        with _build.on_device(q.device):
+            _build.check(fn(q.data_ptr(), kv_pool.data_ptr(),
+                            block_tables.data_ptr(), context_lens.data_ptr(),
+                            out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, D,
+                            MB, P, s_row, layer_off, s_side, s_tok,
+                            D ** -0.5, cluster, stream),
+                         "paged_attention")
         launches += 1
         return out
     s_srow = kv_scales.stride(0)
@@ -143,10 +144,12 @@ def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,
         ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 6 + [ctypes.c_float] + [ctypes.c_int]
         + [ctypes.c_void_p])
-    _build.check(fn(q.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
-                    block_tables.data_ptr(), context_lens.data_ptr(),
-                    out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, D, MB, P,
-                    s_row, layer_off, s_side, s_tok, s_srow, s_layer_off,
-                    D ** -0.5, cluster, stream), "paged_attention int8")
+    with _build.on_device(q.device):
+        _build.check(fn(q.data_ptr(), kv_pool.data_ptr(),
+                        kv_scales.data_ptr(), block_tables.data_ptr(),
+                        context_lens.data_ptr(), out.data_ptr(),
+                        _DTYPES[q.dtype], B, H, Hkv, D, MB, P, s_row,
+                        layer_off, s_side, s_tok, s_srow, s_layer_off,
+                        D ** -0.5, cluster, stream), "paged_attention int8")
     launches_int8 += 1
     return out

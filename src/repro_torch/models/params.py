@@ -1,19 +1,23 @@
-"""Weights of the dense decoder the paged runner executes.
+"""Weights of the dense decoder that the paged runner and the dense
+``LM`` (``models/lm.py``) execute.
 
 The tree is ``{"layers": [per-layer dict, ...], "head": dict}``, in
 execution order. A layer holds ``ln1``, ``wq (d, H, D)``, ``wk``/``wv``
 ``(d, Hkv, D)``, ``wo (H, D, d)``, ``ln2``, ``w_gate``/``w_up (d, f)`` and
 ``w_down (f, d)``; the head holds ``embed (V, d)``, ``final_norm`` and,
-unless the embeddings are tied, ``lm_head (d, V)``.
+unless the embeddings are tied, ``lm_head (d, V)``. Local and global
+attention layers share these shapes, so one table serves every layer the
+port runs.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dtype_of
 
 
 def param_shapes(cfg: ModelConfig):
@@ -69,3 +73,41 @@ def from_jax_params(layers: Sequence[Mapping[str, object]],
     return {"layers": [{k: conv(v) for k, v in layer.items()}
                        for layer in layers],
             "head": {k: conv(v) for k, v in head.items()}}
+
+
+def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
+                   device) -> Dict[str, object]:
+    """Weights of the dense ``LM`` at ``cfg.dtype``, drawn from
+    ``generator`` exactly as ``init_params`` draws the paged runner's: one
+    seed gives both executors the same model. Raises for a config the
+    ``LM`` does not run yet."""
+    from repro_torch.models.lm import LM
+    LM(cfg)
+    return init_params(cfg, generator, device, dtype_of(cfg.dtype))
+
+
+def layers_of_segments(program, segments) -> List[dict]:
+    """Per-layer dicts in execution order from a tree laid out by the
+    reference's segments (segment -> repeat -> pattern position), as its
+    ``LM.init`` weights and its ``LM.prefill`` caches are: a segment that
+    repeats holds each leaf stacked on a leading axis of ``repeat``."""
+    out = []
+    for seg, p_seg in zip(program, segments, strict=True):
+        for rep in range(seg.repeat):
+            for pi in range(len(seg.pattern)):
+                out.append({k: (v[rep] if seg.repeat > 1 else v)
+                            for k, v in p_seg[pi].items()})
+    return out
+
+
+def from_jax_lm_params(tree: Mapping[str, object], cfg: ModelConfig,
+                       device) -> Dict[str, object]:
+    """The weight bridge for the dense ``LM``: the reference ``LM.init``
+    tree (``embed``, ``final_norm``, ``lm_head`` unless tied, and
+    ``segments``) to the port's per-layer tree on ``device``, at
+    ``cfg.dtype``."""
+    from repro_torch.models.lm import LM
+    layers = layers_of_segments(LM(cfg).program, tree["segments"])
+    head = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
+            if k in tree}
+    return from_jax_params(layers, head, device, dtype_of(cfg.dtype))

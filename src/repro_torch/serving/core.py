@@ -30,7 +30,8 @@ from repro_torch.core.duplexkv import DuplexKV
 from repro_torch.core.transfer import PipelineTimeline
 from repro_torch.core.types import (FINISH_ABORTED, Request, RequestOutput,
                                     RequestState, SamplingParams, resolve_slo_class)
-from repro_torch.serving.executor import BatchPlan, Executor, SimExecutor
+from repro_torch.serving.executor import (BatchPlan, Executor,
+                                          RealExecutorAdapter, SimExecutor)
 from repro_torch.serving.outputs import DriverClaim, OutputCollector, RequestHandle
 from repro_torch.serving.schedulers import Scheduler, make_scheduler
 
@@ -241,7 +242,7 @@ class EngineCore:
                                                      serving.rotary)
         # -- executor resolution: one ``Executor`` serves the whole step().
         #    * ``real_executor`` (legacy per-request prefill/decode object)
-        #      is not ported yet;
+        #      is wrapped in the protocol adapter, timed by a SimExecutor;
         #    * ``serving.paged_runner`` builds the batched PagedModelRunner
         #      (``runner_cfg``: the model it executes — typically a tiny
         #      ``reduced()`` — while timing stays on ``cfg``) on ``device``
@@ -251,11 +252,11 @@ class EngineCore:
         tp = int(getattr(serving, "tp", 1) or 1)
         kvd = getattr(serving, "kv_dtype", "bf16")
         if real_executor is not None:
-            raise NotImplementedError(
-                "the dense per-request RealExecutor is not ported yet "
-                "(ROADMAP.md §1 item 7)")
+            self.executor: Executor = RealExecutorAdapter(
+                real_executor, executor or SimExecutor(cfg, hw, tp=tp,
+                                                       kv_dtype=kvd))
         elif executor is not None:
-            self.executor: Executor = executor
+            self.executor = executor
         elif serving.paged_runner:
             from repro_torch.serving.paged_runner import PagedModelRunner
             self.executor = PagedModelRunner(

@@ -4,11 +4,16 @@
 turns a ``BatchPlan`` into per-request next tokens (``execute``), models the
 iteration's device time (``step_time``), and receives request lifecycle
 hooks (``swap_out``/``swap_in``/``drop``) so rotation and aborts reach
-whatever holds per-request device state. Two implementations:
+whatever holds per-request device state. Three implementations:
 
 * ``SimExecutor`` — roofline cost model on a HardwareProfile (the SLO
   benchmarks run on CPU, so wall-time is simulated around the *real*
   scheduler/block-table code). Emits no tokens.
+* ``RealExecutor`` (+ ``RealExecutorAdapter``) — drives the dense decoder
+  ``LM`` with dense per-request KV caches, one Python call per request, on
+  ``device`` (CUDA unless the caller passes "cpu"): the path that proves the
+  engine lossless under rotation, and the only one that runs
+  sliding-window/global patterns.
 * ``repro_torch.serving.paged_runner.PagedModelRunner`` — batched execution
   over a pooled block-first KV buffer addressed by the engine's own block
   table (the paper's §4.3 design); decode is one batched paged-attention
@@ -17,7 +22,7 @@ whatever holds per-request device state. Two implementations:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import HardwareProfile, ModelConfig
 
@@ -162,3 +167,151 @@ class SimExecutor(Executor):
         # other half (kernel launch, completion handling) stays on the
         # critical path. Mirrors step_time's empty-plan halving.
         return self.fixed / 2 if not plan.empty else self.fixed / 4
+
+
+class RealExecutor:
+    """Drives the dense decoder ``LM`` with a dense per-request KV view.
+
+    Token streams must be identical with and without rotation: rotation
+    copies a request's caches, byte for byte, to CPU tensors in a host store
+    and back, the DuplexKV data path in its plainest form. Weights are
+    ``params`` (``models.params.from_jax_lm_params``) or drawn from ``seed``
+    (``init_lm_params``, the same draw as the paged runner's). ``device``
+    defaults to CUDA; with no CUDA device only an explicit ``device="cpu"``
+    runs. Wrap in ``RealExecutorAdapter`` to plug into ``EngineCore``.
+    """
+
+    def __init__(self, cfg: ModelConfig, seed: int = 0, *, device=None,
+                 params: Optional[dict] = None):
+        import torch
+        from repro_torch.device import resolve_device
+        from repro_torch.models.lm import LM
+        from repro_torch.models.params import init_lm_params
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.lm = LM(cfg)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_lm_params(cfg, gen, self.device)
+        self.params = params
+        self._caches: Dict[int, list] = {}   # req_id -> per-layer caches
+        self._host: Dict[int, Optional[list]] = {}   # req_id -> CPU copies
+        self._tokens: Dict[int, List[int]] = {}
+
+    def prefill(self, req_id: int, tokens: Sequence[int], capacity: int) -> int:
+        import torch
+        toks = torch.tensor([list(tokens)], dtype=torch.long,
+                            device=self.device)
+        logits, cache = self.lm.prefill(self.params, {"tokens": toks},
+                                        capacity)
+        self._caches[req_id] = cache
+        nxt = int(logits[0].argmax())
+        self._tokens[req_id] = [nxt]
+        return nxt
+
+    def decode(self, req_id: int, token: int, cache_len: int) -> int:
+        import torch
+        if req_id not in self._caches:
+            raise RuntimeError(
+                f"decode on request {req_id} with no device cache — it was "
+                "swapped out (or dropped) and never swapped back in")
+        logits, cache = self.lm.decode_step(
+            self.params, self._caches[req_id],
+            {"token": torch.tensor([token], dtype=torch.long,
+                                   device=self.device),
+             "cache_len": int(cache_len)})
+        self._caches[req_id] = cache
+        nxt = int(logits[0].argmax())
+        self._tokens[req_id].append(nxt)
+        return nxt
+
+    # rotation = copy the caches off the device and back — the real data path
+    def swap_out(self, req_id: int) -> None:
+        cache = self._caches.pop(req_id, None)
+        if cache is None:
+            # Mid-prefill requests have no cache yet; that is only a legal
+            # state BEFORE the first token. A cache-less request that has
+            # already generated tokens lost its KV — fail loudly instead of
+            # silently resuming with garbage.
+            if self._tokens.get(req_id):
+                raise RuntimeError(
+                    f"swap_out on request {req_id}: no device cache but "
+                    f"{len(self._tokens[req_id])} generated tokens — its KV "
+                    "state was lost")
+            self._host[req_id] = None   # sentinel: rotated out mid-prefill
+            return
+        self._host[req_id] = [{k: t.to("cpu", copy=True) for k, t in c.items()}
+                              for c in cache]
+
+    def swap_in(self, req_id: int) -> None:
+        host = self._host.pop(req_id, None)
+        if host is None:
+            # Mid-prefill resume: no KV existed at swap-out, so there is
+            # nothing to restore — prefill has not completed, and the engine
+            # re-runs it before any decode. A token-bearing request in this
+            # state would decode against a missing cache.
+            if self._tokens.get(req_id):
+                raise RuntimeError(
+                    f"swap_in on request {req_id}: resumed without a KV "
+                    "cache after generating tokens")
+            return
+        self._caches[req_id] = [
+            {k: t.to(self.device, copy=True) for k, t in c.items()}
+            for c in host]
+
+    def drop(self, req_id: int) -> None:
+        self._caches.pop(req_id, None)
+        self._host.pop(req_id, None)
+        self._tokens.pop(req_id, None)
+
+
+class RealExecutorAdapter(Executor):
+    """Adapts a per-request real executor (``prefill``/``decode``/``swap_*``
+    /``drop``) to the batched ``Executor`` protocol. Iteration timing comes
+    from a wrapped ``SimExecutor`` (device wall-time stays simulated; only
+    tokens are real). Dense per-request caches cannot share prefix blocks,
+    so ``supports_prefix_cache`` is False — the engine forces the cache off.
+    """
+
+    supports_prefix_cache = False
+
+    def __init__(self, real, sim: SimExecutor):
+        self.real = real
+        self.sim = sim
+
+    def step_time(self, plan: BatchPlan) -> float:
+        return self.sim.step_time(plan)
+
+    def plan_time(self, plan: BatchPlan) -> float:
+        return self.sim.plan_time(plan)
+
+    def execute(self, plan: BatchPlan, requests) -> ExecutionResult:
+        from repro_torch.core.types import RequestState
+        out = ExecutionResult()
+        for rid, take in plan.prefill_chunks:
+            r = requests.get(rid)
+            if r is None or r.prompt_ids is None:
+                continue
+            # legacy semantics: dense prefill of the WHOLE prompt runs once,
+            # at the iteration whose chunk completes it
+            if r.prefill_pos + take >= r.prompt_len and r.tokens_generated == 0:
+                out.tokens[rid] = self.real.prefill(
+                    rid, r.prompt_ids,
+                    capacity=r.prompt_len + r.output_len + 1)
+        for rid in plan.decode_reqs:
+            r = requests.get(rid)
+            if r is None or r.state != RequestState.RUNNING:
+                continue
+            if r.generated_ids:
+                out.tokens[rid] = self.real.decode(
+                    rid, r.generated_ids[-1], r.total_len - 1)
+        return out
+
+    def swap_out(self, req_id: int) -> None:
+        self.real.swap_out(req_id)
+
+    def swap_in(self, req_id: int) -> None:
+        self.real.swap_in(req_id)
+
+    def drop(self, req_id: int) -> None:
+        self.real.drop(req_id)

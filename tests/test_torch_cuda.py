@@ -2,8 +2,10 @@
 small shapes (the paged kernel in both its modes, its split-K across
 contexts that cross split boundaries and its batch invariance, the bf16
 tensor-core flash kernel, ``kv_copy`` on pool and scale rows),
-``quant_store_tokens`` on the card against the CPU, and the paged runner
-on the card against itself on the CPU, bf16 and int8 KV.
+``quant_store_tokens`` on the card against the CPU, the paged runner
+on the card against itself on the CPU, bf16 and int8 KV, the dense
+executor likewise on a model with sliding windows, and launches from a
+thread that set no CUDA device.
 These need a CUDA card (nvcc builds the kernels at first use); without one
 every test here skips. On the card:
 
@@ -315,6 +317,69 @@ def test_runner_on_the_card_matches_the_cpu(gen, kv_dtype):
         eng.drain(max_time_s=500)
         assert eng.stats.active_rotations + eng.stats.passive_preemptions
         assert runner.store.pool.data_ptr() == ptr
+        streams[device] = {r.req_id: list(r.generated_ids)
+                           for r in eng.core.submitted}
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_kernels_launch_from_a_thread_that_set_no_device(gen):
+    """The async engine's driver thread launches every kernel, and it never
+    sets a CUDA device: its launches give the main thread's outputs."""
+    import threading
+    q = randn(gen, (4, 8, 64), torch.bfloat16)
+    pool = randn(gen, (10, 2, 2, 16, 2, 64), torch.bfloat16)
+    bt = torch.randint(0, 10, (4, 3), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cl = torch.tensor([1, 17, 40, 48], device="cuda", dtype=torch.int32)
+    qf = randn(gen, (1, 37, 8, 64), torch.bfloat16)
+    kf = randn(gen, (1, 100, 2, 64), torch.bfloat16)
+
+    def run():
+        return (ops.paged_attention(q, pool, bt, cl, layer=1, force="kernel"),
+                ops.flash_attention(qf, kf, kf, q_offset=63, window=32,
+                                    force="kernel"))
+    want = run()
+    got = {}
+    t = threading.Thread(target=lambda: got.update(out=run()))
+    t.start()
+    t.join(120)
+    assert not t.is_alive()
+    torch.cuda.synchronize()
+    for a, b in zip(got["out"], want):
+        assert torch.equal(a, b)
+
+
+def test_dense_executor_on_the_card_matches_the_cpu(gen):
+    """gemma3-1b.reduced() at 6 layers in fp32 (five local layers with a
+    32-token window, one global), prompts longer than the window, under
+    rotation: the dense RealExecutor on CUDA (the flash kernel with its
+    window) emits the streams it emits on the CPU, from the same weights."""
+    import repro_torch.configs as tcfg
+    from repro_torch.core.types import Request
+    from repro_torch.models.params import init_lm_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.executor import RealExecutor
+    cfg = dataclasses.replace(tcfg.get_config("gemma3-1b").reduced(),
+                              dtype="float32", num_layers=6)
+    sv = tcfg.ServingConfig(num_hbm_blocks=20, num_dram_blocks=512,
+                            block_size=4, max_model_len=64, prefill_chunk=8)
+    params = init_lm_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(3)
+    reqs = [dict(ids=[int(x) for x in rng.integers(1, cfg.vocab_size, 37)],
+                 out=int(rng.integers(12, 14))) for _ in range(5)]
+    streams = {}
+    for device in ("cpu", "cuda"):
+        p = {"layers": [{k: v.to(device) for k, v in layer.items()}
+                        for layer in params["layers"]],
+             "head": {k: v.to(device) for k, v in params["head"].items()}}
+        eng = ServingEngine(cfg, sv, tcfg.GH200, real_executor=RealExecutor(
+            cfg, device=device, params=p))
+        for i, r in enumerate(reqs):
+            eng.add_request(Request(req_id=i, arrival_time=0.02 * i,
+                                    prompt_len=len(r["ids"]),
+                                    output_len=r["out"], prompt_ids=r["ids"]))
+        eng.drain(max_time_s=500)
+        assert eng.stats.active_rotations + eng.stats.passive_preemptions
         streams[device] = {r.req_id: list(r.generated_ids)
                            for r in eng.core.submitted}
     assert streams["cuda"] == streams["cpu"]

@@ -58,8 +58,20 @@ def test_unported_serving_options_raise(field, value):
 
 
 def test_real_executor_is_not_ported():
+    """The dense per-request RealExecutor is ported now: ``real_executor=``
+    is wrapped in the protocol adapter, timed by a SimExecutor, and the
+    prefix cache is forced off under it, as in the reference. (The name
+    dates from when ``real_executor=`` raised; this is what it checks
+    now.)"""
+    import dataclasses
     import repro_torch.configs as tc
     from repro_torch.serving.engine import ServingEngine
-    with pytest.raises(NotImplementedError, match="RealExecutor"):
-        ServingEngine(tc.get_config("qwen2.5-32b"), serve_defaults(tc),
-                      tc.GH200, real_executor=object())
+    from repro_torch.serving.executor import RealExecutorAdapter, SimExecutor
+    real = object()
+    sv = dataclasses.replace(serve_defaults(tc), prefix_cache=True)
+    eng = ServingEngine(tc.get_config("qwen2.5-32b"), sv, tc.GH200,
+                        real_executor=real)
+    ex = eng.core.executor
+    assert isinstance(ex, RealExecutorAdapter) and ex.real is real
+    assert isinstance(ex.sim, SimExecutor)
+    assert eng.core._prefix_cache is False

@@ -40,16 +40,21 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_new_modules_are_covered_and_import_no_jax():
-    """The modules of the int8 tier and the serving CLI are among the files
-    checked above, and importing all of them loads neither JAX nor the
-    reference package (checked in a fresh interpreter)."""
+    """The modules of the int8 tier, the serving CLI, the HTTP front door
+    and the dense executor are among the files checked above, and importing
+    all of them loads neither JAX nor the reference package (checked in a
+    fresh interpreter)."""
     import os
     import subprocess
     import sys
     mods = ["repro_torch.kernels.quant", "repro_torch.serving.telemetry",
             "repro_torch.serving.trace_export", "repro_torch.serving.router",
             "repro_torch.serving.disagg", "repro_torch.core.migration",
-            "repro_torch.launch.serve"]
+            "repro_torch.launch.serve", "repro_torch.serving.async_engine",
+            "repro_torch.serving.server", "repro_torch.launch.server_main",
+            "repro_torch.models.attention", "repro_torch.models.blocks",
+            "repro_torch.models.lm", "repro_torch.models.params",
+            "repro_torch.serving.executor"]
     covered = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
     for m in mods:
         assert m.replace(".", "/") + ".py" in covered, m
@@ -76,3 +81,26 @@ def test_runner_without_device_needs_cuda():
             PagedModelRunner(cfg, sv)
         with pytest.raises(RuntimeError, match="CUDA"):
             PagedModelRunner(cfg, sv, device="cuda")
+
+
+def test_server_and_dense_executor_without_device_need_cuda():
+    """The HTTP server's engine and the dense executor run on CUDA unless
+    the caller names the CPU; with no card they raise, never fall back."""
+    import dataclasses
+    import repro_torch.configs as tc
+    from repro_torch.serving.executor import RealExecutor
+    from repro_torch.serving.server import ServerConfig
+    cfg = dataclasses.replace(tc.get_config("llama3-8b").reduced(),
+                              dtype="float32")
+    if torch.cuda.is_available():
+        assert RealExecutor(cfg).device.type == "cuda"
+        return
+    for kw in ({}, {"paged_runner": True}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServerConfig(**kw).build_engine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RealExecutor(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RealExecutor(cfg, device="cuda")
+    assert RealExecutor(cfg, device="cpu").device.type == "cpu"
+    assert ServerConfig(device="cpu").build_engine() is not None
