@@ -14,16 +14,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against its plain PyTorch version on the card, at llama3-8b's
    full-width shapes, in bf16 and fp32, edge cases included (flash: a
    37-row chunk under a window, the dense path's whole-prompt prefill at
-   llama3-8b's and the reduced gemma3's heads; paged: B=8 with empty
-   splits), each within
-   a stated tolerance; the paged kernel's output for one sequence bitwise
-   equal alone and in a batch; ``quant_store_tokens`` on the card against
-   the CPU;
+   llama3-8b's and the reduced gemma3's heads, head_dim 256 at gemma3-1b's
+   and paligemma-3b's heads (causal with q_offset, window 512, non-causal
+   with Sq != Skv), seamless-m4t's non-causal encoder and cross-attention;
+   paged: B=8 with empty splits), each within a stated tolerance; the
+   paged kernel's output for one sequence bitwise equal alone and in a
+   batch; ``quant_store_tokens`` on the card against the CPU;
 4. timing: each kernel at main-path shapes (CUDA events, median after
    warm-up) beside its bound, its plain version and a library yardstick;
    paged attention also at the main path's decode batch (B=8, ctx 1024,
    both modes, a different layer each call so no call finds the last in
-   L2);
+   L2); flash also at head_dim 256 (gemma3-1b's heads under its window,
+   paligemma-3b's over its 320-position prompt);
 5. serving: llama3-8b at full width (bf16 weights, random from a seeded
    generator) through ``ServingEngine(..., paged_runner=True)``, once with
    the bf16 KV pool and once with the int8 tier: (a) ample HBM, (b) HBM
@@ -50,7 +52,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    HBM (equal streams, flash launched; the top-1 agreement with phase 5's
    paged run is printed), then gemma3-1b.reduced() at 6 layers in fp32,
    whose local layers have a 32-token window: lossless under rotation, and
-   the card's streams equal the CPU's from the same weights.
+   the card's streams equal the CPU's from the same weights;
+11. families: ``RealExecutor`` behind ``ServingEngine`` at full width in
+   bf16 on qwen3-moe-30b-a3b (48 layers of 128 experts, 61 GB of weights),
+   mamba2-2.7b (SSM) and gemma3-1b (head_dim 256, window 512), 4 requests
+   each, with ample HBM (traced: device busy share) and with 77 blocks,
+   which rotates (equal streams; flash launched where there is attention);
+   paligemma-3b (256 image embeddings before 64 tokens) and
+   seamless-m4t-medium (an encoder over 1024 frames) through
+   ``LM.prefill`` and 16 greedy ``decode_step``s, held to the
+   decode-continuity check in bf16; then the reduced qwen3-moe, mamba2 and
+   jamba (8 layers) in fp32, lossless under rotation and equal to the CPU.
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -83,6 +95,12 @@ TOL = {"bf16": 2e-2, "fp32": 1e-5}   # atol = rtol: bf16 output rounding
 #                                      (the reference kernel tests' bf16
 #                                      tolerance); fp32 summation order
 ROW_MOVES = ("copy_launches", "d2d_rows", "d2h_rows", "h2d_rows")
+CONTINUITY_TOL = 0.05     # bf16: max |dlogit| <= 0.05 * max |logit|
+# phase 11's run (b): with 4 requests, HBM for the two largest (109 blocks)
+# rotates at most once on the model's clock (gemma3's prompts never), 77
+# rotates each family 32-38 times; at 69, mamba2's requests livelock the
+# scheduler, in the reference's sim mode too (ROADMAP.md §3)
+FAMILY_TIGHT_HBM = 77
 INT8_REPLACES = "src/repro/kernels/paged_attention.py:84 (kv_scales)"
 
 
@@ -108,6 +126,24 @@ def time_ms(torch, fn, reps=10, per=10, warmup=3):
         b.synchronize()
         ts.append(a.elapsed_time(b) / per)
     return statistics.median(ts)
+
+
+def kernel_ms(torch, fn, family, calls=20):
+    """Device milliseconds per call of ``fn``'s own kernels (``family`` in
+    KERNEL_FAMILIES), summed from a torch.profiler trace. Where a call's
+    kernel is shorter than its host dispatch, ``time_ms``'s back-to-back
+    events measure the host's launch rate instead of the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = device_time_by_family(prof).get(family, 0.0) / calls
+    if ms <= 0:
+        raise AssertionError(f"no {family} kernel in the trace")
+    return ms
 
 
 def check(name, dtype, case, got, want, tol, errs):
@@ -215,6 +251,32 @@ def kernel_checks(torch, ops, ref, cfg, errs, dev="cuda"):
             check("flash_attention", dname,
                   f"T={T} Skv={Skv} q_offset={off} window={win} H/Hkv/D="
                   f"{h}/{hkv}/{d}", got, want, tol, errs)
+        # the families' shapes (phase 11): head_dim 256 at gemma3-1b's heads
+        # (GQA group 4) with q_offset, under its 512-token window, and at
+        # paligemma-3b's (group 8) over its whole 320-position prompt and
+        # non-causal with Sq != Skv; seamless-m4t's non-causal encoder and
+        # its cross-attention (16/16/64)
+        for T, Skv, off, win, causal, arch in (
+                (512, 1024, 300, 0, True, "gemma3-1b"),
+                (512, 1024, 512, 512, True, "gemma3-1b"),
+                (320, 320, 0, 0, True, "paligemma-3b"),
+                (64, 320, None, 0, False, "paligemma-3b"),
+                (1024, 1024, None, 0, False, "seamless-m4t-medium"),
+                (64, 1024, None, 0, False, "seamless-m4t-medium")):
+            fc = get_config(arch)
+            h, hkv, d = fc.num_heads, fc.num_kv_heads, fc.head_dim
+            q = torch.randn((1, T, h, d), generator=g, device=dev).to(dt)
+            k = torch.randn((1, Skv, hkv, d), generator=g, device=dev).to(dt)
+            v = torch.randn((1, Skv, hkv, d), generator=g, device=dev).to(dt)
+            got = ops.flash_attention(q, k, v, causal=causal, window=win,
+                                      q_offset=off, force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=win, q_offset=off)
+            torch.cuda.synchronize()
+            check("flash_attention", dname,
+                  f"{arch} heads: T={T} Skv={Skv} q_offset={off} window="
+                  f"{win} causal={causal} H/Hkv/D={h}/{hkv}/{d}", got, want,
+                  tol, errs)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -356,9 +418,11 @@ def int8_checks(torch, ops, ref, quant, cfg, errs, dev="cuda"):
 # ---------------------------------------------------------------- phase 4
 
 def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
-    """Each kernel at main-path shapes in bf16: (ms, plain_ms, bound_ms,
-    bound_by, library_ms)."""
+    """Each kernel at main-path shapes in bf16: a dict of ms (CUDA events),
+    kernel_ms (the kernel alone, from a trace), plain_ms, bound_ms,
+    bound_by and library_ms."""
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
     dt, e = torch.bfloat16, 2
     L, Hkv, D, H = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     P, NB, staging = 16, 1024, 64
@@ -368,9 +432,14 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
                        dtype=torch.float32).to(dt)
     out = {}
 
-    def bound(nbytes, flops):
+    def timed(family, kernel, plain, nbytes, flops, library=None):
         tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
+        return dict(ms=time_ms(torch, kernel),
+                    kernel_ms=kernel_ms(torch, kernel, family),
+                    plain_ms=time_ms(torch, plain), bound_ms=max(tb, tf),
+                    bound_by="bytes" if tb >= tf else "operations",
+                    library_ms=None if library is None
+                    else time_ms(torch, library))
 
     # kv_copy: one staging batch of 64 whole rows (2 MiB each)
     flat = pool.view(rows, -1)
@@ -379,12 +448,10 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
     s_t = torch.from_numpy(src.astype(np.int64)).to(dev)
     d_t = torch.from_numpy(dst.astype(np.int64)).to(dev)
     row_bytes = flat[0].numel() * e
-    out["kv_copy"] = (
-        time_ms(torch, lambda: ops.kv_copy(flat, src, dst, force="kernel")),
-        time_ms(torch, lambda: ref.kv_copy_ref(flat, src, dst)),
-        *bound(2 * 64 * row_bytes, 0),
-        time_ms(torch, lambda: flat.index_copy_(0, d_t, flat.index_select(
-            0, s_t))))
+    out["kv_copy"] = timed(
+        "kv_copy", lambda: ops.kv_copy(flat, src, dst, force="kernel"),
+        lambda: ref.kv_copy_ref(flat, src, dst), 2 * 64 * row_bytes, 0,
+        lambda: flat.index_copy_(0, d_t, flat.index_select(0, s_t)))
     # paged attention in both modes: decode B=32 at context 1024 on one
     # layer of the pool (the shape timed since the first port), then the
     # main path's decode batch, B=8 at context 1024, a different layer each
@@ -408,13 +475,13 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
 
             def layer():
                 return 0 if B == 32 else next(layers) % L
-            out[name + tag] = (
-                time_ms(torch, lambda: ops.paged_attention(
+            out[name + tag] = timed(
+                "paged_attention", lambda: ops.paged_attention(
                     q, kv, bt, cl, layer=layer(), kv_scales=sc,
-                    force="kernel")),
-                time_ms(torch, lambda: ref.paged_attention_ref(
-                    q, kv, bt, cl, layer=layer(), kv_scales=sc)),
-                *bound(nbytes, flops), None)
+                    force="kernel"),
+                lambda: ref.paged_attention_ref(
+                    q, kv, bt, cl, layer=layer(), kv_scales=sc),
+                nbytes, flops)
     # the int8 tier's K/V store (plain PyTorch, not a kernel), one side of
     # one layer: a 512-token prefill chunk (its rescale gathers the whole
     # (T, P, Hkv, D) slab) and a 32-lane decode step
@@ -441,19 +508,45 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
     mask = (torch.arange(Skv, device=dev)[None, :]
             <= off + torch.arange(T, device=dev)[:, None])
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    out["flash_attention"] = (
-        time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True,
-                                                   q_offset=off,
-                                                   force="kernel")),
-        time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
-                                                       q_offset=off)),
-        *bound(nbytes, 4 * pairs * H * D),
-        time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)))
-    for name, (ms, pms, bms, by, lms) in out.items():
-        log(f"time {name}: {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
-            f"ms ({by}), library "
-            + ("n/a" if lms is None else f"{lms:.4f} ms"))
+    out["flash_attention"] = timed(
+        "flash_attention", lambda: ops.flash_attention(
+            q, k, v, causal=True, q_offset=off, force="kernel"),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True, q_offset=off),
+        nbytes, 4 * pairs * H * D,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True))
+    # flash at head_dim 256: gemma3-1b's heads (4/1), a 512-token chunk at
+    # q_offset 512 over 1024 keys under its 512-token window, and
+    # paligemma-3b's (8/1) over its whole 320-position prompt
+    for tag, arch, T, Skv, off, win in (
+            ("@D=256", "gemma3-1b", 512, 1024, 512, 512),
+            ("@D=256,paligemma", "paligemma-3b", 320, 320, 0, 0)):
+        fc = get_config(arch)
+        h, hkv, d = fc.num_heads, fc.num_kv_heads, fc.head_dim
+        q = torch.randn((1, T, h, d), generator=g, device=dev).to(dt)
+        k = torch.randn((1, Skv, hkv, d), generator=g, device=dev).to(dt)
+        v = torch.randn((1, Skv, hkv, d), generator=g, device=dev).to(dt)
+        pos = off + torch.arange(T, device=dev)[:, None]
+        kpos = torch.arange(Skv, device=dev)[None, :]
+        mask = (kpos <= pos) & ((kpos > pos - win) if win else True)
+        pairs = int(mask.sum())
+        nbytes = 2 * T * h * d * e + 2 * Skv * hkv * d * e
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out["flash_attention" + tag] = timed(
+            "flash_attention", lambda: ops.flash_attention(
+                q, k, v, causal=True, window=win, q_offset=off,
+                force="kernel"),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True, window=win,
+                                            q_offset=off),
+            nbytes, 4 * pairs * h * d,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=True))
+    for name, t in out.items():
+        log(f"time {name}: {t['ms']:.4f} ms (kernel alone {t['kernel_ms']:.4f}"
+            f" ms), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}), library "
+            + ("n/a" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms"))
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -955,9 +1048,12 @@ def supervisor_phase():
 
 # --------------------------------------------------------------- phase 10
 
-def dense_run(torch, cfg, prompts, params, sv_kw, hbm, device, label):
+def dense_run(torch, cfg, prompts, params, sv_kw, hbm, device, label,
+              trace=False):
     """The dense per-request executor behind ServingEngine on ``device``
-    with ``hbm`` blocks: its streams, rotations and wall."""
+    with ``hbm`` blocks: its streams, rotations, wall and peak device
+    memory; ``trace`` adds the device's busy milliseconds (torch.profiler
+    over the drain)."""
     from repro_torch.configs import GH200, ServingConfig
     from repro_torch.core.types import SamplingParams
     from repro_torch.serving.engine import ServingEngine
@@ -969,10 +1065,21 @@ def dense_run(torch, cfg, prompts, params, sv_kw, hbm, device, label):
         prompt_ids=ids, sampling_params=SamplingParams(max_tokens=n))
         for ids, n in prompts]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = None
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
     t0 = time.perf_counter()
     eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    busy = None
+    if prof is not None:
+        prof.stop()
+        fams = device_time_by_family(prof)
+        busy = sum(fams.values())
     streams = {h.req_id: list(h.request.generated_ids) for h in handles}
     for (_, n), s in zip(prompts, streams.values()):
         if len(s) != n or not all(0 <= t < cfg.vocab_size for t in s):
@@ -980,8 +1087,14 @@ def dense_run(torch, cfg, prompts, params, sv_kw, hbm, device, label):
                                  f"asked")
     rot = eng.stats.active_rotations + eng.stats.passive_preemptions
     ntok = sum(len(s) for s in streams.values())
+    peak = torch.cuda.max_memory_allocated()
     log(f"{label} hbm={hbm} blocks on {device}: wall {wall:.3f} s, {ntok} "
-        f"tokens, {ntok / wall:.2f} tok/s, rotations {rot}")
+        f"tokens, {ntok / wall:.2f} tok/s, rotations {rot}"
+        + ("" if device == "cpu" else f", peak device memory {peak} B")
+        + ("" if busy is None else f", device busy {busy:.1f} ms "
+           f"({busy / (wall * 1e3):.3f} of wall), by family " + ", ".join(
+               f"{k} {v:.1f} ms" for k, v in
+               sorted(fams.items(), key=lambda kv: -kv[1]))))
     del eng, handles
     gc.collect()
     torch.cuda.empty_cache()
@@ -989,11 +1102,12 @@ def dense_run(torch, cfg, prompts, params, sv_kw, hbm, device, label):
 
 
 def dense_runs(torch, cfg, prompts, params, sv_kw, hbm_ample, hbm_tight,
-               label):
-    """The dense executor on the card: (a) ample HBM, (b) tight HBM, which
-    forces rotation through swap_out/swap_in; equal streams asserted."""
+               label, trace=False):
+    """The dense executor on the card: (a) ample HBM (traced if ``trace``),
+    (b) tight HBM, which forces rotation through swap_out/swap_in; equal
+    streams asserted."""
     out = {run: dense_run(torch, cfg, prompts, params, sv_kw, hbm, "cuda",
-                          f"{label} run ({run})")
+                          f"{label} run ({run})", trace=trace and run == "a")
            for run, hbm in (("a", hbm_ample), ("b", hbm_tight))}
     if out["b"]["rotations"] == 0:
         raise AssertionError(f"{label} run (b) did not rotate")
@@ -1045,22 +1159,155 @@ def dense_phase(torch, cfg, prompts, paged_a):
     gsv = dict(block_size=4, prefill_chunk=8, max_model_len=128,
                num_dram_blocks=512)
     glabel = "gemma3-1b-reduced 6 layers fp32 dense"
-    gruns = dense_runs(torch, gcfg, gprompts, gparams, gsv, 4096, 25, glabel)
-    # the same weights on the CPU (the plain flash version), run (b): the
-    # card's flash kernel, window and global layer, must give its streams
-    cpu_params = {part: ([{k: v.cpu() for k, v in layer.items()}
-                          for layer in tree] if part == "layers"
-                         else {k: v.cpu() for k, v in tree.items()})
-                  for part, tree in gparams.items()}
-    cpu = dense_run(torch, gcfg, gprompts, cpu_params, gsv, 25, "cpu",
-                    f"{glabel} run (b)")
-    if cpu["streams"] != gruns["b"]["streams"]:
-        raise AssertionError(f"{glabel}: the card's streams differ from the "
-                             f"CPU's")
-    log(f"{glabel}: the card's streams equal the CPU's from the same "
-        f"weights")
+    card_vs_cpu(torch, gcfg, gprompts, gparams, gsv, 4096, 25, glabel)
     log(f"phase 10 wall: {time.perf_counter() - t0:.2f} s")
     return launches
+
+
+def card_vs_cpu(torch, cfg, prompts, params, sv_kw, hbm_ample, hbm_tight,
+                label):
+    """A reduced model on the card, lossless under rotation, then its run
+    (b) on the CPU from the same weights (the plain versions): the card's
+    kernels and operations must give the CPU's streams."""
+    from repro_torch.models.params import params_to
+    runs = dense_runs(torch, cfg, prompts, params, sv_kw, hbm_ample,
+                      hbm_tight, label)
+    cpu = dense_run(torch, cfg, prompts, params_to(params, "cpu"), sv_kw,
+                    hbm_tight, "cpu", f"{label} run (b)")
+    if cpu["streams"] != runs["b"]["streams"]:
+        raise AssertionError(f"{label}: the card's streams differ from the "
+                             f"CPU's")
+    log(f"{label}: the card's streams equal the CPU's from the same "
+        f"weights")
+
+
+# --------------------------------------------------------------- phase 11
+
+def mib(n):
+    return f"{n / 2**20:.1f} MiB"
+
+
+def continuity(torch, lm, params, batch, steps, label):
+    """Prefill, then ``steps`` greedy decode steps on the card; the first
+    step's logits against the prefill of the prompt plus that token (the
+    decode-continuity check of ``tests/test_models.py``), within
+    CONTINUITY_TOL · max |logit|, top-1 equal in every row whose top-2
+    margin is above the error."""
+    F = lm.cfg.frontend.num_embeds if (lm.cfg.frontend.kind != "none" and
+                                       not lm.cfg.num_encoder_layers) else 0
+    n = batch["tokens"].shape[1]
+    cap = n + F + steps + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(params, batch, cap)
+    tok = logits.float().argmax(-1)
+    first = None
+    for i in range(steps):
+        logits, caches = lm.decode_step(params, caches, {
+            "token": tok, "cache_len": n + F + i})
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{label}: non-finite logits at step {i}")
+        if first is None:
+            first = (tok, logits.float())
+        tok = logits.float().argmax(-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del caches
+    want, _ = lm.prefill(params, dict(batch, tokens=torch.cat(
+        [batch["tokens"], first[0][:, None]], 1)), cap)
+    want = want.float()
+    err = (first[1] - want).abs().max().item()
+    scale = want.abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    same = (first[1].argmax(-1) == want.argmax(-1)).tolist()
+    log(f"{label}: prefill + {steps} decode steps {wall:.3f} s; continuity "
+        f"max |dlogit| {err:.4e} of max |logit| {scale:.4e} ({err / scale:.4f}"
+        f", tolerance {CONTINUITY_TOL}); top-1 equal {same}, top-2 margins "
+        f"{[round(m, 5) for m in margins]}")
+    if not np.isfinite(err) or err > CONTINUITY_TOL * scale:
+        raise AssertionError(f"{label}: continuity error {err:.4e} over "
+                             f"{CONTINUITY_TOL} x {scale:.4e}")
+    for ok, m in zip(same, margins):
+        if not ok and m > err:
+            raise AssertionError(f"{label}: top-1 differs at a margin {m} "
+                                 f"above the error {err}")
+
+
+
+def families_phase(torch):
+    """Every model family of the repo on the card at full width through
+    the port's LM: qwen3-moe-30b-a3b (MoE, 48 layers), mamba2-2.7b (SSM)
+    and gemma3-1b (head_dim 256, window 512) served by RealExecutor behind
+    ServingEngine, with ample and tight HBM; paligemma-3b (256 image
+    embeddings) and seamless-m4t-medium (an encoder over 1024 frames)
+    through LM.prefill/decode_step; then the reduced qwen3-moe, mamba2 and
+    jamba (8 layers) in fp32 on the card against the CPU."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import make_demo_inputs
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import init_lm_params
+    t_phase = time.perf_counter()
+    sv_kw = dict(block_size=16, prefill_chunk=512)
+    for arch, plen in (("qwen3-moe-30b-a3b", (200, 1001)),
+                       ("mamba2-2.7b", (200, 1001)),
+                       ("gemma3-1b", (600, 1001))):
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{arch}: device memory allocated before its weights "
+            f"{mib(torch.cuda.memory_allocated())}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_lm_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        log(f"{arch}: {cfg.param_count() / 1e9:.3f} B parameters drawn in "
+            f"bf16 in {time.perf_counter() - t0:.2f} s, "
+            f"{mib(torch.cuda.memory_allocated())} allocated")
+        prompts = make_prompts(cfg, 4, plen, (16, 33), seed=0)
+        before = ops.launch_counts()["flash_attention"]
+        dense_runs(torch, cfg, prompts, params, sv_kw, 1024,
+                   FAMILY_TIGHT_HBM, f"{arch} full width bf16", trace=True)
+        flash = ops.launch_counts()["flash_attention"] - before
+        log(f"{arch}: flash launches {flash} (head_dim {cfg.head_dim})")
+        if (flash > 0) != (cfg.num_attn_layers > 0):
+            raise AssertionError(f"{arch}: flash launched {flash} times")
+        del params
+    for arch, seq in (("paligemma-3b", 320), ("seamless-m4t-medium", 64)):
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_lm_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "cuda")
+        batch = make_demo_inputs(cfg, ShapeConfig("p", seq, 2, "prefill"),
+                                 device="cuda")
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        before = ops.launch_counts()["flash_attention"]
+        torch.cuda.reset_peak_memory_stats()
+        continuity(torch, LM(cfg), params, batch, 16,
+                   f"{arch} full width bf16 {shapes}")
+        flash = ops.launch_counts()["flash_attention"] - before
+        log(f"{arch}: flash launches {flash} (head_dim {cfg.head_dim}), "
+            f"peak device memory {torch.cuda.max_memory_allocated()} B")
+        if not flash:
+            raise AssertionError(f"{arch}: flash never launched")
+        del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, layers in (("qwen3-moe-30b-a3b", 4), ("mamba2-2.7b", 4),
+                         ("jamba-1.5-large-398b", 8)):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32", num_layers=layers)
+        prompts = make_prompts(cfg, 5, (40, 61), (10, 17), seed=3)
+        params = init_lm_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "cuda")
+        card_vs_cpu(torch, cfg, prompts, params,
+                    dict(block_size=4, prefill_chunk=8, max_model_len=128,
+                         num_dram_blocks=512), 4096, 25,
+                    f"{arch}-reduced {layers} layers fp32 dense")
+    log(f"phase 11 wall: {time.perf_counter() - t_phase:.2f} s")
 
 
 def main(argv) -> int:
@@ -1189,6 +1436,13 @@ def main(argv) -> int:
     # 10. the dense per-request executor: full width bf16, reduced gemma3
     launches["dense"] = dense_phase(torch, cfg, prompts, full["bf16"]["a"])
 
+    # 11. every model family through the LM, at full width where one card
+    # holds it
+    ops.reset_launch_counts()
+    families_phase(torch)
+    launches["families"] = ops.launch_counts()
+    log(f"families path kernel launches: {launches['families']}")
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -1197,24 +1451,23 @@ def main(argv) -> int:
                                    "src/repro/kernels/flash_attention.py:72")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        ms, pms, bms, by, lms = times[name]
         entry = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
             launches=sum(c.get(name, 0) for c in launches.values()),
-            max_abs_err=errs[name], ms=ms, plain_ms=pms, bound_ms=bms,
-            bound_by=by, library_ms=lms,
+            max_abs_err=errs[name], **times[name],
             launches_by_phase={phase: c.get(name, 0) for phase, c in
                                (("5_bf16", launches["bf16"]),
                                 ("5_int8", launches["int8"]),
                                 ("8_server", launches["server"]),
                                 ("9_supervisor", launches["supervisor"]),
-                                ("10_dense", launches["dense"]))})
-        if name + "@B=8" in times:     # the main path's own decode batch
-            ms, pms, bms, by, lms = times[name + "@B=8"]
-            entry["at_decode_batch_8"] = dict(
-                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                library_ms=lms)
+                                ("10_dense", launches["dense"]),
+                                ("11_families", launches["families"]))})
+        for tag, key in (("@B=8", "at_decode_batch_8"),
+                         ("@D=256", "at_head_dim_256"),
+                         ("@D=256,paligemma", "at_head_dim_256_paligemma")):
+            if name + tag in times:    # the main paths' other shapes
+                entry[key] = times[name + tag]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

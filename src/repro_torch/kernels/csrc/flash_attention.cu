@@ -16,19 +16,20 @@
 //
 // * bf16: flash_fwd_wg_kernel, on the tensor cores through wgmma. One
 //   warpgroup per (64-query tile, query head, batch); S = Q.K^T and
-//   O += P.V are wgmma m64n64k16 (bf16 in, fp32 accumulate) with Q's and
-//   P's fragments as the register A operand, so P never leaves registers:
-//   the online softmax runs on the accumulator layout and P is rounded to
-//   bf16 in place. K (K-major) and V (MN-major, transposed by the
-//   descriptor) are the shared-memory B operand, 128B-swizzled. K/V tiles
-//   of 64 tokens of one kv head arrive by TMA into a two-stage ring: one
-//   thread asks for each 64 x 64 box (the hardware swizzles it and fills
-//   rows past Skv and columns past D with zeros) and an mbarrier per
-//   stage says when its bytes have landed, so tile j+1 loads while tile j
-//   is computed. The tensor maps are built on the host at each call
-//   through cudaGetDriverEntryPoint, so nothing links libcuda. Q (loaded
-//   once) comes by cp.async; its fragments are reloaded from shared memory
-//   at every tile (see the loop).
+//   O += P.V are wgmma m64n64k16 (bf16 in, fp32 accumulate). Q (K-major)
+//   is the shared-memory A operand of S, read by the tensor cores through
+//   a descriptor; P's fragments are the register A operand of O, so P
+//   never leaves registers: the online softmax runs on the accumulator
+//   layout and P is rounded to bf16 in place. K (K-major) and V (MN-major,
+//   transposed by the descriptor) are the shared-memory B operand,
+//   128B-swizzled. Q's tile (once) and K/V tiles of 64 tokens of one kv
+//   head (into a two-stage ring) arrive by TMA: one thread asks for each
+//   64 x 64 box (the hardware swizzles it and fills rows past Sq or Skv
+//   and columns past D with zeros) and an mbarrier per stage says when its
+//   bytes have landed, so tile j+1 loads while tile j is computed. The tensor maps are built on
+//   the host at each call through cudaGetDriverEntryPoint, so nothing
+//   links libcuda. Keeping Q out of the registers leaves them to the O
+//   accumulator, 128 fp32 a thread at D = 256.
 // * fp32: flash_fwd_kernel, on the CUDA cores in fp32. The reduced model's
 //   lossless checks hold fp32 to 1e-5, which TF32 tensor cores would not.
 //   One block per (16-query tile, query head, batch), four warps of four
@@ -189,7 +190,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // d (64x64 fp32, the m64n64 accumulator layout) += a (64x16 bf16, this
 // warp's 16 rows in the mma.sync A-fragment layout) . b (16x64 bf16 in
 // shared memory, described by desc; TRANS_B: b is MN-major), as one
-// asynchronous warpgroup operation; scale_d = 0 overwrites d.
+// asynchronous warpgroup operation; scale_d = 0 overwrites d. (_ss: a
+// too is in shared memory, K-major, described by desc_a.)
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t* a, uint64_t desc,
                                                 int scale_d) {
@@ -210,16 +212,25 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t* a, uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
 }
 
-// A tile of rows x D bf16 in shared memory, 16-byte chunks XOR-swizzled by
-// row so that the eight rows an ldmatrix reads sit in distinct banks.
-template <int D>
-struct Tile {
-  static constexpr int CH = D / 8;                        // chunks per row
-  static constexpr int SW = (CH < 8 ? CH : 8) - 1;
-  __device__ __forceinline__ static uint32_t at(uint32_t base, int row, int chunk) {
-    return base + (uint32_t)((row * CH + (chunk ^ (row & SW))) * 16);
-  }
-};
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
 
 // shared-memory matrix descriptor of a 128B-swizzled operand: rows of 64
 // bf16 (128 bytes), 8-row atoms of 1024 bytes at 1024-byte alignment
@@ -278,28 +289,29 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
 }
 
 // One warpgroup per (64 query rows, query head, batch): S = Q.K^T and
-// O += P.V are wgmma m64n64k16 with Q's and P's fragments as the register
-// A operand and K (K-major) and V (MN-major, transposed by the descriptor)
-// read from 128B-swizzled shared memory; the online softmax runs on the
-// accumulators. Head dims below 64 are zero-padded to 64. tmk and tmv map
-// k and v as (D, Hkv, Skv, B) with 64 x 1 x 64 x 1 boxes, 128B-swizzled.
+// O += P.V are wgmma m64n64k16, Q (K-major) and K (K-major) and V
+// (MN-major, transposed by the descriptor) read from 128B-swizzled shared
+// memory and P's fragments the register A operand of O; the online
+// softmax runs on the accumulators. Head dims below 64 are zero-padded to
+// 64. tmq, tmk and tmv map q, k and v as (D, heads, S, B) with 64 x 1 x
+// 64 x 1 boxes, 128B-swizzled.
 template <int D>
 __global__ void __launch_bounds__(kWgThreads)
-flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap tmk,
+flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                     const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
                     int Sq, int Skv, int H, int Hkv, int q_offset, int causal, int window,
                     float scale) {
   constexpr int DP = D < 64 ? 64 : D;    // padded head dim
   constexpr int DB = DP / 64;            // 64-wide column blocks
-  using TL = Tile<DP>;
-  constexpr int CH = DP / 8, KS = DP / 16, NT = kWgN / 8;
+  constexpr int KS = DP / 16, NT = kWgN / 8;
   constexpr uint32_t kBlk = kWgN * 128;                   // one 64-wide block of a tile
-  constexpr uint32_t kTile = 2 * kBlk;                    // DP <= 128: two blocks
+  constexpr uint32_t kTile = DB * kBlk;                   // a K or V tile
   extern __shared__ __align__(128) unsigned char wg_smem[];
   const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
   const uint32_t sKV = base;                              // stage s: K then V
-  const uint32_t sQ = base + kWgStages * 2 * kTile;
-  const uint32_t sBar = sQ + kWgM * DP * 2;                // one mbarrier per stage
+  const uint32_t sQ = base + kWgStages * 2 * kTile;       // DB blocks of kBlk
+  const uint32_t sBar = sQ + kTile;                       // an mbarrier per stage, then Q's
+  const uint32_t qBar = sBar + kWgStages * 8;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int q0 = qt * kWgM, h = blockIdx.y, b = blockIdx.z;
@@ -327,23 +339,20 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __grid_constant__
     }
   };
   if (tid == 0) {
-    for (int st = 0; st < kWgStages; ++st) mbar_init(sBar + st * 8, 1);
+    for (int st = 0; st <= kWgStages; ++st) mbar_init(sBar + st * 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();                       // the barriers are initialised
 
-  for (int i = tid; i < kWgM * CH; i += kWgThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = q0 + r < Sq && c * 8 < D;
-    const long long off = ok ? (((long long)b * Sq + q0 + r) * H + h) * D + c * 8 : 0;
-    cp_async16(TL::at(sQ, r, c), q + off, ok);
+  if (tid == 0) {
+    mbar_expect_tx(qBar, kTile);
+#pragma unroll
+    for (int d = 0; d < DB; ++d) tma_load_4d(sQ + d * kBlk, &tmq, qBar, d * 64, h, q0, b);
   }
-  cp_async_commit();
 #pragma unroll
   for (int j = 0; j < kWgStages - 1; ++j)
     if (j < n_tiles) load_tile(j, j);
-  cp_async_wait<0>();
-  __syncthreads();                       // Q has landed
+  mbar_wait(qBar, 0);                    // Q has landed
 
   float acc[DB][32];
 #pragma unroll
@@ -359,33 +368,21 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __grid_constant__
     const int nx = j + kWgStages - 1;
     if (nx < n_tiles) load_tile(nx, nx % kWgStages);
     mbar_wait(sBar + (j % kWgStages) * 8, (j / kWgStages) & 1);   // tile j has landed
-    // Q's A fragments, from shared memory at every tile. Loaded once and
-    // held across tiles (fence_regs on them after each wait), they come
-    // back wrong at D <= 64 from the second tile on: in that build's SASS
-    // ptxas hands Q's fragment registers to the masking arithmetic and to
-    // P's fragments right after the S wgmma's wait, so the next tile's S
-    // wgmma reads P as Q. At D = 128 it leaves them alone. An empty asm
-    // fence does not keep a register live across the loop; a fresh load
-    // does. Checked on the card over D 16-128 and two kv tiles or more.
-    uint32_t qa[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      ldmatrix_x4(TL::at(sQ, warp * 16 + (lane & 15), ks * 2 + (lane >> 4)), qa[ks][0],
-                  qa[ks][1], qa[ks][2], qa[ks][3]);
     const uint32_t sk = sKV + (j % kWgStages) * 2 * kTile, sv = sk + kTile;
     const int k0 = (t_begin + j) * kWgN;
 
-    // S = Q . K^T (K-major B: 16 of a key's 64 columns per step)
+    // S = Q . K^T (K-major A and B: 16 of a row's 64 columns per step)
     float s[32];
     fence_regs<32>(s);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16<0>(s, qa[ks], sw128_desc(sk + (ks / 4) * kBlk + (ks % 4) * 32, 0, 1024),
-                         ks > 0);
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t col = (ks / 4) * kBlk + (ks % 4) * 32;
+      wgmma_m64n64k16_ss<0>(s, sw128_desc(sQ + col, 0, 1024), sw128_desc(sk + col, 0, 1024),
+                            ks > 0);
+    }
     wgmma_commit_wait();
     fence_regs<32>(s);
-    fence_regs<4 * KS>(&qa[0][0]);
 
     const bool edge = k0 + kWgN > Skv || (causal && k0 + kWgN - 1 > qlo + warp * 16) ||
                       (window > 0 && k0 <= qhi - window);
@@ -520,9 +517,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// x (B, Skv, Hkv, D) bf16 as a 4-d tensor map (D, Hkv, Skv, B): 64 x 1 x 64 x
-// 1 boxes, 128B-swizzled; elements outside the tensor read as zero
-bool kv_map(CUtensorMap* map, const void* x, int B, int Skv, int Hkv, int D) {
+// x (B, S, Hx, D) bf16 as a 4-d tensor map (D, Hx, S, B): 64 x 1 x 64 x 1
+// boxes, 128B-swizzled; elements outside the tensor read as zero
+bool bshd_map(CUtensorMap* map, const void* x, int B, int Skv, int Hkv, int D) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Skv, (cuuint64_t)B};
@@ -540,14 +537,15 @@ template <int D>
 int launch_wg(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
               int H, int Hkv, int q_offset, int causal, int window, float scale,
               cudaStream_t stream) {
-  constexpr int DP = D < 64 ? 64 : D;
-  CUtensorMap tmk, tmv;
-  if (!kv_map(&tmk, k, B, Skv, Hkv, D) || !kv_map(&tmv, v, B, Skv, Hkv, D))
+  constexpr int DB = (D < 64 ? 64 : D) / 64;
+  CUtensorMap tmq, tmk, tmv;
+  if (!bshd_map(&tmq, q, B, Sq, H, D) || !bshd_map(&tmk, k, B, Skv, Hkv, D) ||
+      !bshd_map(&tmv, v, B, Skv, Hkv, D))
     return (int)cudaErrorInvalidValue;
-  // 1024-byte alignment slack, then per stage K and V tiles of two
-  // 64-column blocks (kWgN x 128 bf16 each), then the Q tile, then one
-  // 8-byte mbarrier per stage
-  const size_t smem = 1024 + (size_t)(kWgStages * 2 * kWgN * 128 + kWgM * DP) * 2 + 8 * kWgStages;
+  // 1024-byte alignment slack, then per stage K and V tiles of DB
+  // 64-column blocks (kWgN rows of 128 bytes each), then the Q tile (DB
+  // blocks of kWgM rows), then an 8-byte mbarrier per stage and Q's
+  const size_t smem = 1024 + (size_t)(kWgStages * 2 + 1) * DB * kWgN * 128 + 8 * (kWgStages + 1);
   auto kernel = flash_fwd_wg_kernel<D>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -555,8 +553,8 @@ int launch_wg(const void* q, const void* k, const void* v, void* o, int B, int S
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((Sq + kWgM - 1) / kWgM, H, B);
-  kernel<<<grid, kWgThreads, smem, stream>>>((const __nv_bfloat16*)q, tmk, tmv, (__nv_bfloat16*)o,
-                                             Sq, Skv, H, Hkv, q_offset, causal, window, scale);
+  kernel<<<grid, kWgThreads, smem, stream>>>(tmq, tmk, tmv, (__nv_bfloat16*)o, Sq, Skv, H, Hkv,
+                                             q_offset, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -578,6 +576,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
       case 32: return launch<float, 32>(REPRO_FLASH_ARGS);
       case 64: return launch<float, 64>(REPRO_FLASH_ARGS);
       case 128: return launch<float, 128>(REPRO_FLASH_ARGS);
+      case 256: return launch<float, 256>(REPRO_FLASH_ARGS);
     }
   } else if (dtype == 1) {
     switch (D) {
@@ -585,6 +584,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
       case 32: return launch_wg<32>(REPRO_FLASH_ARGS);
       case 64: return launch_wg<64>(REPRO_FLASH_ARGS);
       case 128: return launch_wg<128>(REPRO_FLASH_ARGS);
+      case 256: return launch_wg<256>(REPRO_FLASH_ARGS);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -8,11 +8,12 @@ start at ``q_offset = start`` over a pow2-padded block context. At prefill
 widths the work is bound by tensor-core FLOPs. The wrapper's C entry runs
 one of two hand-written kernels by dtype: bf16 goes to the tensor cores
 (``wgmma`` m64n64k16 for Q.K^T and P.V, one warpgroup per 64-query tile,
-Q and P as register operands, 64-key K/V tiles by TMA into a two-stage
-ring of 128B-swizzled shared memory with an mbarrier per stage, the
-online softmax in registers); fp32 stays on the CUDA cores, since the lossless checks hold
-it to 1e-5, which TF32 would not. Both visit only the kv tiles a query
-tile can see.
+Q read from shared memory, P a register operand, Q and 64-key K/V tiles
+by TMA, K/V into a two-stage ring of 128B-swizzled shared memory with an
+mbarrier per stage, the online softmax in registers); fp32 stays on the CUDA cores, since the lossless
+checks hold it to 1e-5, which TF32 would not. Both visit only the kv tiles
+a query tile can see. ``head_dim`` is one of 16, 32, 64, 128 and 256;
+any other raises.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 launches = 0      # kernel launches (plain-version calls are not counted)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -73,8 +74,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head_dim {D} not in "
                          f"{_HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and (k.data_ptr() % 16 or v.data_ptr() % 16):
-        raise ValueError("flash_attention kernel: bf16 k and v must be "
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: bf16 q, k and v must be "
                          "16-byte aligned (they are read by TMA)")
     off = Skv - Sq if q_offset is None else int(q_offset)
     scale = D ** -0.5 if softmax_scale is None else float(softmax_scale)

@@ -1,10 +1,12 @@
-"""Attention of the dense decoder: prefill (flash) and one-token decode over
-a dense per-request cache.
+"""Attention of the ``LM``: prefill (flash) and one-token decode over a
+dense per-request cache.
 
 ``flash_attention`` has the reference's call (``src/repro/models/
 attention.py:36``): q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) with GQA by
 ``Hkv``, ``q_offset`` the absolute position of q[0] relative to k[0],
-``window`` a sliding window (0 = full). On CUDA it runs the flash kernel,
+``window`` a sliding window (0 = full), ``causal=False`` for an encoder's
+layers and for cross-attention over its memory (Sq != Skv). On CUDA it
+runs the flash kernel,
 on the CPU the plain version; never a library attention. The reference's
 ``chunk_q``/``chunk_kv`` set the jnp version's tile sizes and have no
 counterpart here: the kernel has its own tiles.

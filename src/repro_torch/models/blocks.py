@@ -1,26 +1,27 @@
-"""Per-layer blocks of the dense decoder: layer specs, cache layout, and the
-prefill (``apply_layer_seq``) and one-token (``apply_layer_decode``) paths.
+"""Per-layer blocks of the ``LM``: layer specs, cache layout, and the
+sequence (``apply_layer_seq``) and one-token (``apply_layer_decode``)
+paths.
 
-The port of ``src/repro/models/blocks.py`` for attention layers with a
-dense FFN: causal attention, local layers with a sliding window and their
-ring cache, and global layers with their own RoPE theta. Eager PyTorch in
-place of jnp; the decode path updates its caches in place. SSM and MoE
-layers are ROADMAP.md §1 item 8 and cross-attention (encoder-decoder) is
-item 7d: they raise ``NotImplementedError``. The training path (no
-cache) comes with item 9. The param defs of the
-reference live in ``models/params.py`` (one shape table for every
-attention layer).
+The port of ``src/repro/models/blocks.py`` for every layer kind the
+reference runs: attention (causal, or sliding-window local layers with
+their ring cache and short RoPE theta, or non-causal encoder layers),
+Mamba-2 SSM layers (``models/ssm.py``), cross-attention over an encoder's
+memory, and a dense or MoE (``models/moe.py``) FFN. Eager PyTorch in place
+of jnp; the decode path updates its caches in place. The weights' shapes
+live in ``models/params.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_rope, rms_norm, swiglu
+from repro_torch.models.moe import moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +33,13 @@ class LayerSpec:
     is_causal: bool = True
 
 
-def make_layer_spec(cfg: ModelConfig, i: int) -> LayerSpec:
-    """Decoder layer ``i``'s spec (encoder layers come with item 7d)."""
+def make_layer_spec(cfg: ModelConfig, i: int, *,
+                    decoder: bool = True) -> LayerSpec:
+    """Layer ``i``'s spec in the decoder stack, or in the encoder stack
+    (every encoder layer is global, non-causal attention with a dense
+    FFN)."""
+    if not decoder:
+        return LayerSpec("attn", True, "dense", False, is_causal=False)
     mixer = cfg.layer_kind(i)
     is_global = cfg.layer_is_global(i) if mixer == "attn" else True
     ffn = "moe" if cfg.layer_is_moe(i) else (
@@ -41,19 +47,6 @@ def make_layer_spec(cfg: ModelConfig, i: int) -> LayerSpec:
     return LayerSpec(mixer, is_global, ffn,
                      has_cross=(cfg.cross_attention
                                 and cfg.num_encoder_layers > 0))
-
-
-def check_ported(spec: LayerSpec) -> None:
-    """Raise for a layer kind the port does not run yet."""
-    if spec.mixer != "attn":
-        raise NotImplementedError("SSM layers are not ported yet "
-                                  "(ROADMAP.md §1 item 8)")
-    if spec.ffn == "moe":
-        raise NotImplementedError("MoE layers are not ported yet "
-                                  "(ROADMAP.md §1 item 8)")
-    if spec.has_cross:
-        raise NotImplementedError("cross-attention (encoder-decoder) is not "
-                                  "ported yet (ROADMAP.md §1 item 7d)")
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +72,15 @@ def _left_fit(x: torch.Tensor, cap: int) -> torch.Tensor:
     out = x.new_zeros((x.shape[0], cap) + tuple(x.shape[2:]))
     keep = min(cap, x.shape[1])
     out[:, :keep] = x[:, :keep]
+    return out
+
+
+def _right_fit(x: torch.Tensor, cap: int) -> torch.Tensor:
+    """Right-align the last ``cap`` steps of x (B, S, ...) into a new
+    tensor of capacity cap (zero padded at the start)."""
+    out = x.new_zeros((x.shape[0], cap) + tuple(x.shape[2:]))
+    keep = min(cap, x.shape[1])
+    out[:, cap - keep:] = x[:, x.shape[1] - keep:]
     return out
 
 
@@ -123,26 +125,101 @@ def _attn_seq(cfg, spec, p, x, positions, window):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
 
+def _cross_seq(cfg, p, x, memory):
+    """Attention of x over the encoder's memory: non-causal, Sq != Skv, no
+    RoPE. Returns out, (ck, cv)."""
+    h = rms_norm(x, p["ln_cross"], cfg.rms_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["cwq"]).contiguous()
+    ck = torch.einsum("bsd,dhk->bshk", memory, p["cwk"]).contiguous()
+    cv = torch.einsum("bsd,dhk->bshk", memory, p["cwv"]).contiguous()
+    out = attn_lib.flash_attention(q, ck, cv, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["cwo"]), (ck, cv)
+
+
+def _ssm_proj(p, h):
+    z = h @ p["w_z"]
+    xr = h @ p["w_x"]
+    br = h @ p["w_b"]
+    cr = h @ p["w_c"]
+    dtr = h @ p["w_dt"]
+    return z, xr, br, cr, dtr
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(x.float()).to(x.dtype)
+
+
+def _ssm_finish(cfg, p, y, z, x_dtype):
+    """Gate y (B, S, H, P) by silu(z), normalise, project out."""
+    B, S, d_in = z.shape
+    y = y.reshape(B, S, d_in)
+    gated = y * torch.nn.functional.silu(z.float()).to(y.dtype)
+    gated = rms_norm(gated, p["norm_y"], cfg.rms_eps)
+    return (gated @ p["out_proj"]).to(x_dtype)
+
+
+def _ffn(cfg, spec, p, x):
+    """The FFN residual of x (B, S, d), or None for an SSM-only layer."""
+    if spec.ffn == "none":
+        return None
+    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    if spec.ffn == "moe":
+        return moe_ffn(h, p["moe"], cfg.moe)
+    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
 def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                     x: torch.Tensor, positions: torch.Tensor, *,
-                    capacity: int) -> Tuple[torch.Tensor, Dict]:
-    """Prefill path. x: (B, S, d); positions: (B, S). Returns (x_out,
-    cache) with the cache laid out for ``capacity`` tokens."""
-    check_ported(spec)
-    window = 0 if spec.is_global else cfg.attn.sliding_window
-    out, (k, v) = _attn_seq(cfg, spec, p, x, positions, window)
-    x = x + out
-    w = window_cache_size(cfg, spec, capacity)
-    if w:
-        # window cache: RING buffer — slot(p) = p % W (a decode update is a
-        # one-token write, not a shift)
-        cache = {"k": _ring_fit(k, w), "v": _ring_fit(v, w)}
+                    memory: Optional[torch.Tensor] = None,
+                    want_cache: bool = False, capacity: int = 0
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Prefill (or encoder) path. x: (B, S, d); positions: (B, S); memory:
+    the encoder's output for a cross-attention layer. Returns (x_out,
+    cache laid out for ``capacity`` tokens, or None)."""
+    cache: Dict[str, torch.Tensor] = {}
+    if spec.mixer == "attn":
+        window = 0 if spec.is_global else cfg.attn.sliding_window
+        out, (k, v) = _attn_seq(cfg, spec, p, x, positions, window)
+        x = x + out
+        if want_cache:
+            w = window_cache_size(cfg, spec, capacity)
+            if w:
+                # window cache: RING buffer — slot(p) = p % W (a decode
+                # update is a one-token write, not a shift)
+                cache["k"], cache["v"] = _ring_fit(k, w), _ring_fit(v, w)
+            else:
+                # full cache: left-aligned, decode appends at cache_len
+                cache["k"] = _left_fit(k, capacity)
+                cache["v"] = _left_fit(v, capacity)
     else:
-        # full cache: left-aligned, decode appends at index cache_len
-        cache = {"k": _left_fit(k, capacity), "v": _left_fit(v, capacity)}
-    h = rms_norm(x, p["ln2"], cfg.rms_eps)
-    x = x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-    return x, cache
+        h = rms_norm(x, p["ln1"], cfg.rms_eps)
+        z, xr, br, cr, dtr = _ssm_proj(p, h)
+        xc = _silu(ssm_lib.causal_conv(xr, p["conv_x"]))
+        bc = _silu(ssm_lib.causal_conv(br, p["conv_b"]))
+        cc = _silu(ssm_lib.causal_conv(cr, p["conv_c"]))
+        res = ssm_lib.ssd_forward({"x": xc, "b": bc, "c": cc, "dt": dtr},
+                                  p, cfg.ssm, return_state=want_cache)
+        if want_cache:
+            y, cache["h"] = res
+            W = cfg.ssm.conv_width
+            cache["conv_x"] = _right_fit(xr, W - 1)
+            cache["conv_b"] = _right_fit(br, W - 1)
+            cache["conv_c"] = _right_fit(cr, W - 1)
+        else:
+            y = res
+        x = x + _ssm_finish(cfg, p, y, z, x.dtype)
+    if spec.has_cross:
+        if memory is None:
+            raise ValueError("a cross-attention layer needs the encoder's "
+                             "memory")
+        out, (ck, cv) = _cross_seq(cfg, p, x, memory)
+        x = x + out
+        if want_cache:
+            cache["ck"], cache["cv"] = ck, cv
+    f = _ffn(cfg, spec, p, x)
+    if f is not None:
+        x = x + f
+    return x, (cache if want_cache else None)
 
 
 def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
@@ -150,27 +227,48 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                        ) -> Tuple[torch.Tensor, Dict]:
     """One-token path. x: (B, d); cache_len: #valid tokens before this step.
     The cache's tensors are updated in place; returns (x_out, cache)."""
-    check_ported(spec)
     B = x.shape[0]
     h = rms_norm(x[:, None], p["ln1"], cfg.rms_eps)          # (B, 1, d)
-    q, k, v = _qkv(h, p)
-    theta = _theta(cfg, spec)
-    pos = torch.full((B, 1), int(cache_len), dtype=torch.long,
-                     device=x.device)
-    q = apply_rope(q, pos, theta)
-    k = apply_rope(k, pos, theta)
-    window = 0 if spec.is_global else cfg.attn.sliding_window
-    cap = cache["k"].shape[1]
-    if window and cap == window:  # ring-buffer window cache
-        slot = int(cache_len) % cap
-        vt = min(int(cache_len) + 1, cap)
+    if spec.mixer == "attn":
+        q, k, v = _qkv(h, p)
+        theta = _theta(cfg, spec)
+        pos = torch.full((B, 1), int(cache_len), dtype=torch.long,
+                         device=x.device)
+        q = apply_rope(q, pos, theta)
+        k = apply_rope(k, pos, theta)
+        window = 0 if spec.is_global else cfg.attn.sliding_window
+        cap = cache["k"].shape[1]
+        if window and cap == window:  # ring-buffer window cache
+            slot = int(cache_len) % cap
+            vt = min(int(cache_len) + 1, cap)
+        else:
+            slot = int(cache_len)
+            vt = int(cache_len) + 1
+        attn_lib.update_cache(cache["k"], k, slot)
+        attn_lib.update_cache(cache["v"], v, slot)
+        out = attn_lib.decode_attention(q[:, 0], cache["k"], cache["v"], 0,
+                                        vt)
+        x = x + torch.einsum("bhk,hkd->bd", out, p["wo"])
     else:
-        slot = int(cache_len)
-        vt = int(cache_len) + 1
-    attn_lib.update_cache(cache["k"], k, slot)
-    attn_lib.update_cache(cache["v"], v, slot)
-    out = attn_lib.decode_attention(q[:, 0], cache["k"], cache["v"], 0, vt)
-    x = x + torch.einsum("bhk,hkd->bd", out, p["wo"])
-    h = rms_norm(x[:, None], p["ln2"], cfg.rms_eps)
-    x = x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])[:, 0]
+        z, xr, br, cr, dtr = (t[:, 0] for t in _ssm_proj(p, h))
+        conv = {}
+        for name, raw in (("conv_x", xr), ("conv_b", br), ("conv_c", cr)):
+            out, state = ssm_lib.causal_conv_step(raw, cache[name], p[name])
+            cache[name].copy_(state)
+            conv[name] = _silu(out)
+        y, h_new = ssm_lib.ssd_decode_step(
+            {"x": conv["conv_x"], "b": conv["conv_b"], "c": conv["conv_c"],
+             "dt": dtr}, p, cfg.ssm, cache["h"])
+        cache["h"].copy_(h_new)
+        x = x + _ssm_finish(cfg, p, y.reshape(B, 1, -1), z[:, None],
+                            x.dtype)[:, 0]
+    if spec.has_cross:
+        h = rms_norm(x[:, None], p["ln_cross"], cfg.rms_eps)
+        q = torch.einsum("bsd,dhk->bshk", h, p["cwq"])
+        out = attn_lib.decode_attention(q[:, 0], cache["ck"], cache["cv"], 0,
+                                        cache["ck"].shape[1])
+        x = x + torch.einsum("bhk,hkd->bd", out, p["cwo"])
+    f = _ffn(cfg, spec, p, x[:, None])
+    if f is not None:
+        x = x + f[:, 0]
     return x, cache

@@ -1,26 +1,30 @@
-"""The decoder LM: a program of layer segments, run layer by layer.
+"""The LM: a program of layer segments, run layer by layer; encoder-decoder
+configs and modality frontends.
 
-The port of ``src/repro/models/lm.py`` for decoder-only configs. The
-program keeps the reference's segments (a pattern of layer specs and its
-repeat count: sextets for gemma3's 5:1 local:global, plain stacks for
+The port of ``src/repro/models/lm.py`` at inference. The program keeps
+the reference's segments (a pattern of layer specs and its repeat count:
+jamba's period of eight for its 1:7 attention:SSM interleave with MoE on
+odd layers, sextets for gemma3's 5:1 local:global, plain stacks for
 uniform models), which is also how the reference stacks its weights; the
 reference's ``lax.scan`` over a segment becomes a Python loop over the
 layers in program order, and the weights are one dict per layer
-(``models/params.py``). Encoder-decoder configs and frontends are ROADMAP.md
-§1 item 7d and raise; ``train_loss`` waits for item 9.
+(``models/params.py``). An encoder-decoder config encodes its source
+embeddings with a non-causal stack that the decoder's cross-attention
+reads; a decoder with a frontend puts its projected embeddings before the
+tokens. ``train_loss`` waits for the training stack (ROADMAP.md §1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LayerSpec, make_layer_spec
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import dtype_of, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,20 +37,24 @@ def _lcm(a: int, b: int) -> int:
     return a * b // math.gcd(a, b)
 
 
-def build_program(cfg: ModelConfig) -> List[Segment]:
-    """The decoder's layers as segments: the shortest period after which
-    the layer pattern repeats (attention/SSM interleave, MoE period,
-    local/global period), repeated, plus a tail."""
-    n = cfg.num_layers
+def build_program(cfg: ModelConfig, *, decoder: bool = True,
+                  num_layers: Optional[int] = None) -> List[Segment]:
+    """A stack's layers as segments: the shortest period after which the
+    decoder's layer pattern repeats (attention/SSM interleave, MoE period,
+    local/global period), repeated, plus a tail; the encoder's layers are
+    all alike."""
+    n = num_layers if num_layers is not None else (
+        cfg.num_layers if decoder else cfg.num_encoder_layers)
     period = 1
-    if cfg.ssm is not None and cfg.attn.attn_period > 1:
-        period = _lcm(period, cfg.attn.attn_period)
-    if cfg.moe is not None:
-        period = _lcm(period, cfg.moe.period)
-    if cfg.attn.global_period:
-        period = _lcm(period, cfg.attn.global_period)
+    if decoder:
+        if cfg.ssm is not None and cfg.attn.attn_period > 1:
+            period = _lcm(period, cfg.attn.attn_period)
+        if cfg.moe is not None:
+            period = _lcm(period, cfg.moe.period)
+        if cfg.attn.global_period:
+            period = _lcm(period, cfg.attn.global_period)
     period = min(period, n)
-    specs = [make_layer_spec(cfg, i) for i in range(n)]
+    specs = [make_layer_spec(cfg, i, decoder=decoder) for i in range(n)]
     segments = []
     full = n // period
     if full:
@@ -58,31 +66,30 @@ def build_program(cfg: ModelConfig) -> List[Segment]:
     return segments
 
 
-class LM:
-    """Functional decoder-only model over the weight tree ``{"layers":
-    [per-layer dict, ...], "head": {"embed", "final_norm"[, "lm_head"]}}``.
+def _layer_specs(program: List[Segment]) -> List[LayerSpec]:
+    return [sp for seg in program for _ in range(seg.repeat)
+            for sp in seg.pattern]
 
-    ``prefill`` returns one cache dict per layer (``k``/``v``, a ring of
-    ``sliding_window`` slots on local layers); ``decode_step`` updates those
-    caches in place.
+
+class LM:
+    """Functional LM over the weight tree ``{"layers": [per-layer dict,
+    ...], "head": {...}[, "encoder": [per-layer dict, ...]]}``
+    (``models/params.py``).
+
+    ``prefill`` returns one cache dict per decoder layer: ``k``/``v`` (a
+    ring of ``sliding_window`` slots on local layers), the SSM layers'
+    ``conv_x``/``conv_b``/``conv_c``/``h``, and ``ck``/``cv`` (the encoder
+    memory's keys and values) on cross-attention layers; ``decode_step``
+    updates those caches in place.
     """
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.num_encoder_layers:
-            raise NotImplementedError(
-                "encoder-decoder LMs are not ported yet "
-                "(ROADMAP.md §1 item 7d)")
-        if cfg.frontend.kind != "none":
-            raise NotImplementedError(
-                f"the {cfg.frontend.kind!r} frontend is not ported yet "
-                "(ROADMAP.md §1 item 7d)")
         self.cfg = cfg
-        self.program = build_program(cfg)
-        self.specs: List[LayerSpec] = [
-            sp for seg in self.program for _ in range(seg.repeat)
-            for sp in seg.pattern]
-        for sp in self.specs:
-            blocks.check_ported(sp)
+        self.program = build_program(cfg, decoder=True)
+        self.enc_program = (build_program(cfg, decoder=False)
+                            if cfg.num_encoder_layers else [])
+        self.specs = _layer_specs(self.program)
+        self.enc_specs = _layer_specs(self.enc_program)
 
     def _logits(self, params, h: torch.Tensor) -> torch.Tensor:
         head = params["head"]
@@ -91,17 +98,45 @@ class LM:
             return h @ head["embed"].T
         return h @ head["lm_head"]
 
+    def _encode(self, params, src_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder's memory (B, F, d): the projection in fp32, the
+        non-causal stack, then ``enc_norm``."""
+        cfg = self.cfg
+        proj = src_embeds.float() @ params["head"]["frontend_proj"].float()
+        x = proj.to(dtype_of(cfg.dtype))
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        for spec, p in zip(self.enc_specs, params["encoder"], strict=True):
+            x, _ = blocks.apply_layer_seq(cfg, spec, p, x, positions)
+        return rms_norm(x, params["head"]["enc_norm"], cfg.rms_eps)
+
+    def _assemble_input(self, params, batch) -> torch.Tensor:
+        """Token embeddings (B, S, d), after the projected frontend
+        embeddings of a decoder-only config with a frontend."""
+        head = params["head"]
+        x = head["embed"][batch["tokens"]]
+        if self.cfg.frontend.kind != "none" and not self.enc_program:
+            emb = batch["embeds"].to(x.dtype)                # (B, F, e)
+            x = torch.cat([(emb @ head["frontend_proj"]).to(x.dtype), x],
+                          dim=1)
+        return x
+
     @torch.no_grad()
     def prefill(self, params, batch: Dict[str, torch.Tensor], capacity: int):
-        """batch: tokens (B, S). Returns (last_logits (B, V), caches)."""
+        """batch: tokens (B, S) [+ embeds (B, F, e) or src_embeds (B, F,
+        e)]. Positions (and so the decode's ``cache_len``) count a
+        frontend's F embeddings first. Returns (last_logits (B, V),
+        caches)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = params["head"]["embed"][tokens]                  # (B, S, d)
-        B, S = tokens.shape
+        memory = (self._encode(params, batch["src_embeds"])
+                  if self.enc_program else None)
+        x = self._assemble_input(params, batch)
+        B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         caches = []
         for spec, p in zip(self.specs, params["layers"], strict=True):
             x, c = blocks.apply_layer_seq(cfg, spec, p, x, positions,
+                                          memory=memory, want_cache=True,
                                           capacity=capacity)
             caches.append(c)
         return self._logits(params, x[:, -1]), caches
@@ -118,3 +153,7 @@ class LM:
                                               batch["cache_len"])
             new_caches.append(nc)
         return self._logits(params, x), new_caches
+
+    def train_loss(self, params, batch):
+        raise NotImplementedError("training is not ported yet "
+                                  "(ROADMAP.md §1 item 9)")

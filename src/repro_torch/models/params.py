@@ -1,13 +1,20 @@
-"""Weights of the dense decoder that the paged runner and the dense
-``LM`` (``models/lm.py``) execute.
+"""Weights of the dense ``LM`` (``models/lm.py``) and the paged runner.
 
-The tree is ``{"layers": [per-layer dict, ...], "head": dict}``, in
-execution order. A layer holds ``ln1``, ``wq (d, H, D)``, ``wk``/``wv``
-``(d, Hkv, D)``, ``wo (H, D, d)``, ``ln2``, ``w_gate``/``w_up (d, f)`` and
-``w_down (f, d)``; the head holds ``embed (V, d)``, ``final_norm`` and,
-unless the embeddings are tied, ``lm_head (d, V)``. Local and global
-attention layers share these shapes, so one table serves every layer the
-port runs.
+The tree is ``{"layers": [per-layer dict, ...], "head": dict}`` in
+execution order, plus ``"encoder": [per-layer dict, ...]`` for an
+encoder-decoder config. A layer holds ``ln1``, then its mixer's weights
+(attention: ``wq (d, H, D)``, ``wk``/``wv (d, Hkv, D)``, ``wo (H, D, d)``;
+SSM: the projections, conv taps and ``A_log``/``D``/``dt_bias`` of
+``_ssm_shapes``), then for a decoder layer of an encoder-decoder config
+``ln_cross`` and ``cwq``/``cwk``/``cwv``/``cwo``, then ``ln2`` and its FFN
+(dense: ``w_gate``/``w_up (d, f)``, ``w_down (f, d)``; MoE: a nested
+``moe`` dict of ``router (d, E)``, ``w_gate``/``w_up (E, d, f)`` and
+``w_down (E, f, d)``). The head holds ``embed (V, d)``, ``final_norm``,
+``lm_head (d, V)`` unless the embeddings are tied, ``frontend_proj (e, d)``
+for a frontend and ``enc_norm`` for an encoder. These are the shapes,
+names and init rules of the reference's ``layer_param_defs``
+(``src/repro/models/blocks.py:46-106``) and ``LM.param_defs``
+(``lm.py:84-101``), in the same order.
 """
 from __future__ import annotations
 
@@ -17,47 +24,131 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import LayerSpec, make_layer_spec
 from repro_torch.models.common import dtype_of
 
 
-def param_shapes(cfg: ModelConfig):
-    """(layer shapes, head shapes): name -> (shape, init) with init "normal"
-    (scaled by 1/sqrt(shape[0]), the fan-in axis) or "zeros" (the norms,
-    which scale by 1 + w) — the reference's rules
-    (``src/repro/models/blocks.py:46-106``, ``lm.py:87-91``)."""
-    d, H, Hkv, D, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    layer = {"ln1": ((d,), "zeros"), "wq": ((d, H, D), "normal"),
-             "wk": ((d, Hkv, D), "normal"), "wv": ((d, Hkv, D), "normal"),
-             "wo": ((H, D, d), "normal"), "ln2": ((d,), "zeros"),
-             "w_gate": ((d, f), "normal"), "w_up": ((d, f), "normal"),
-             "w_down": ((f, d), "normal")}
-    head = {"embed": ((cfg.vocab_size, d), "normal"),
-            "final_norm": ((d,), "zeros")}
+def _attn_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, tuple]:
+    d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {prefix + "wq": ((d, H, D), "normal"),
+            prefix + "wk": ((d, Hkv, D), "normal"),
+            prefix + "wv": ((d, Hkv, D), "normal"),
+            prefix + "wo": ((H, D, d), "normal")}
+
+
+def _ssm_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    d, s = cfg.d_model, cfg.ssm
+    d_in = s.expand * d
+    H, N, W = d_in // s.head_dim, s.state_dim, s.conv_width
+    return {"w_z": ((d, d_in), "normal"), "w_x": ((d, d_in), "normal"),
+            "w_b": ((d, N), "normal"), "w_c": ((d, N), "normal"),
+            "w_dt": ((d, H), "normal"), "dt_bias": ((H,), "ssm_dt"),
+            "A_log": ((H,), "ssm_a"), "D": ((H,), "ones"),
+            "conv_x": ((W, d_in), "normal"), "conv_b": ((W, N), "normal"),
+            "conv_c": ((W, N), "normal"), "norm_y": ((d_in,), "zeros"),
+            "out_proj": ((d_in, d), "normal")}
+
+
+def layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, object]:
+    """One layer's weights: name -> (shape, init), the MoE weights nested
+    under ``moe``. Init is "normal" (scaled by 1/sqrt(shape[0]), the
+    reference's fan-in axis, experts included), "zeros" (the norms, which
+    scale by 1 + w), "ones", "ssm_a" or "ssm_dt"."""
+    d = cfg.d_model
+    out: Dict[str, object] = {"ln1": ((d,), "zeros")}
+    out.update(_attn_shapes(cfg) if spec.mixer == "attn" else _ssm_shapes(cfg))
+    if spec.has_cross:
+        out["ln_cross"] = ((d,), "zeros")
+        out.update(_attn_shapes(cfg, "c"))
+    if spec.ffn != "none":
+        out["ln2"] = ((d,), "zeros")
+    if spec.ffn == "dense":
+        f = cfg.d_ff
+        out.update(w_gate=((d, f), "normal"), w_up=((d, f), "normal"),
+                   w_down=((f, d), "normal"))
+    elif spec.ffn == "moe":
+        m = cfg.moe
+        E, f = m.num_experts, m.expert_d_ff or cfg.d_ff
+        out["moe"] = {"router": ((d, E), "normal"),
+                      "w_gate": ((E, d, f), "normal"),
+                      "w_up": ((E, d, f), "normal"),
+                      "w_down": ((E, f, d), "normal")}
+    return out
+
+
+def head_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    d = cfg.d_model
+    out = {"embed": ((cfg.vocab_size, d), "normal"),
+           "final_norm": ((d,), "zeros")}
     if not cfg.tie_embeddings:
-        head["lm_head"] = ((d, cfg.vocab_size), "normal")
-    return layer, head
+        out["lm_head"] = ((d, cfg.vocab_size), "normal")
+    if cfg.frontend.kind != "none":
+        out["frontend_proj"] = ((cfg.frontend.embed_dim, d), "normal")
+    if cfg.num_encoder_layers:
+        out["enc_norm"] = ((d,), "zeros")
+    return out
+
+
+def param_shapes(cfg: ModelConfig):
+    """(layer shapes, head shapes) of a uniform decoder, the paged
+    runner's: every layer is layer 0's kind."""
+    return layer_shapes(cfg, make_layer_spec(cfg, 0)), head_shapes(cfg)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device, dtype: torch.dtype) -> Dict[str, object]:
     """Random weights drawn from ``generator`` (which must live on
-    ``device``): fp32 normals scaled by 1/sqrt(fan_in), then cast to
-    ``dtype``. The draws are torch's, not the JAX package's: to compare with
-    the reference, bridge its weights with ``from_jax_params``."""
-    layer_shapes, head_shapes = param_shapes(cfg)
-
+    ``device``), layer by layer in execution order, then the head, then the
+    encoder; each tensor drawn in fp32 and cast to ``dtype`` at once, so
+    one fp32 temporary lives at a time. The draws are torch's, not the JAX
+    package's: to compare with the reference, bridge its weights with
+    ``from_jax_lm_params``."""
     def draw(shape, init):
-        if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
+        if init in ("zeros", "ones"):
+            fill = torch.zeros if init == "zeros" else torch.ones
+            return fill(shape, dtype=dtype, device=device)
+        if init in ("ssm_a", "ssm_dt"):
+            lo, hi = (1.0, 16.0) if init == "ssm_a" else (1e-3, 1e-1)
+            u = torch.rand(shape, generator=generator, device=device,
+                           dtype=torch.float32) * (hi - lo) + lo
+            # A_log: log U[1, 16]; dt_bias: inverse softplus of U[1e-3, 0.1]
+            w = (torch.log(u) if init == "ssm_a"
+                 else u + torch.log(-torch.expm1(-u)))
+            return w.to(dtype)
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
         return w.mul_(1.0 / np.sqrt(max(shape[0], 1))).to(dtype)
 
-    layers = [{k: draw(*v) for k, v in layer_shapes.items()}
-              for _ in range(cfg.num_layers)]
-    head = {k: draw(*v) for k, v in head_shapes.items()}
-    return {"layers": layers, "head": head}
+    def draw_tree(shapes):
+        return {k: draw_tree(v) if isinstance(v, dict) else draw(*v)
+                for k, v in shapes.items()}
+
+    tree = {"layers": [draw_tree(layer_shapes(cfg, make_layer_spec(cfg, i)))
+                       for i in range(cfg.num_layers)],
+            "head": draw_tree(head_shapes(cfg))}
+    if cfg.num_encoder_layers:
+        enc = layer_shapes(cfg, make_layer_spec(cfg, 0, decoder=False))
+        tree["encoder"] = [draw_tree(enc)
+                           for _ in range(cfg.num_encoder_layers)]
+    return tree
+
+
+def params_to(tree, device):
+    """A copy of a weight (or cache) tree with every tensor on ``device``."""
+    if isinstance(tree, Mapping):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _bridge(tree, device, dtype):
+    if isinstance(tree, Mapping):
+        return {k: _bridge(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_bridge(v, device, dtype) for v in tree]
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
+        device=device, dtype=dtype)
 
 
 def from_jax_params(layers: Sequence[Mapping[str, object]],
@@ -66,23 +157,15 @@ def from_jax_params(layers: Sequence[Mapping[str, object]],
     """The weight bridge: the reference runner's per-layer dicts in
     execution order (``PagedModelRunner._layers``) and its head dict, as
     anything ``numpy.asarray`` reads, to the port's tree on ``device``."""
-    def conv(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype)
-
-    return {"layers": [{k: conv(v) for k, v in layer.items()}
-                       for layer in layers],
-            "head": {k: conv(v) for k, v in head.items()}}
+    return _bridge({"layers": list(layers), "head": dict(head)}, device,
+                   dtype)
 
 
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
                    device) -> Dict[str, object]:
     """Weights of the dense ``LM`` at ``cfg.dtype``, drawn from
     ``generator`` exactly as ``init_params`` draws the paged runner's: one
-    seed gives both executors the same model. Raises for a config the
-    ``LM`` does not run yet."""
-    from repro_torch.models.lm import LM
-    LM(cfg)
+    seed gives both executors the same model."""
     return init_params(cfg, generator, device, dtype_of(cfg.dtype))
 
 
@@ -90,24 +173,33 @@ def layers_of_segments(program, segments) -> List[dict]:
     """Per-layer dicts in execution order from a tree laid out by the
     reference's segments (segment -> repeat -> pattern position), as its
     ``LM.init`` weights and its ``LM.prefill`` caches are: a segment that
-    repeats holds each leaf stacked on a leading axis of ``repeat``."""
+    repeats holds each leaf (nested dicts included) stacked on a leading
+    axis of ``repeat``."""
+    def pick(v, rep):
+        if isinstance(v, Mapping):
+            return {k: pick(x, rep) for k, x in v.items()}
+        return v[rep]
+
     out = []
     for seg, p_seg in zip(program, segments, strict=True):
         for rep in range(seg.repeat):
             for pi in range(len(seg.pattern)):
-                out.append({k: (v[rep] if seg.repeat > 1 else v)
-                            for k, v in p_seg[pi].items()})
+                out.append(pick(p_seg[pi], rep) if seg.repeat > 1
+                           else dict(p_seg[pi]))
     return out
 
 
 def from_jax_lm_params(tree: Mapping[str, object], cfg: ModelConfig,
                        device) -> Dict[str, object]:
     """The weight bridge for the dense ``LM``: the reference ``LM.init``
-    tree (``embed``, ``final_norm``, ``lm_head`` unless tied, and
-    ``segments``) to the port's per-layer tree on ``device``, at
-    ``cfg.dtype``."""
+    tree (``embed``, ``final_norm``, ``lm_head`` unless tied,
+    ``frontend_proj``, ``segments`` with their nested ``moe`` dicts, and
+    ``encoder`` with ``enc_norm``) to the port's per-layer tree on
+    ``device``, at ``cfg.dtype``."""
     from repro_torch.models.lm import LM
-    layers = layers_of_segments(LM(cfg).program, tree["segments"])
-    head = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
-            if k in tree}
-    return from_jax_params(layers, head, device, dtype_of(cfg.dtype))
+    lm = LM(cfg)
+    out = {"layers": layers_of_segments(lm.program, tree["segments"]),
+           "head": {k: tree[k] for k in head_shapes(cfg)}}
+    if lm.enc_program:
+        out["encoder"] = layers_of_segments(lm.enc_program, tree["encoder"])
+    return _bridge(out, device, dtype_of(cfg.dtype))

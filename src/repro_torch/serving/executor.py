@@ -9,8 +9,8 @@ whatever holds per-request device state. Three implementations:
 * ``SimExecutor`` — roofline cost model on a HardwareProfile (the SLO
   benchmarks run on CPU, so wall-time is simulated around the *real*
   scheduler/block-table code). Emits no tokens.
-* ``RealExecutor`` (+ ``RealExecutorAdapter``) — drives the dense decoder
-  ``LM`` with dense per-request KV caches, one Python call per request, on
+* ``RealExecutor`` (+ ``RealExecutorAdapter``) — drives the decoder-only
+  ``LM`` (every family) with dense per-request caches, one Python call per request, on
   ``device`` (CUDA unless the caller passes "cpu"): the path that proves the
   engine lossless under rotation, and the only one that runs
   sliding-window/global patterns.
@@ -179,6 +179,12 @@ class RealExecutor:
     (``init_lm_params``, the same draw as the paged runner's). ``device``
     defaults to CUDA; with no CUDA device only an explicit ``device="cpu"``
     runs. Wrap in ``RealExecutorAdapter`` to plug into ``EngineCore``.
+
+    Every decoder-only config runs here (attention, SSM, hybrid, MoE); a
+    cache is a list of per-layer dicts, and rotation copies every tensor of
+    each. ``prefill`` passes only the prompt's tokens, as the reference's
+    does, so a config with a frontend or an encoder, which needs its
+    embeddings too, is refused at construction.
     """
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, *, device=None,
@@ -187,6 +193,13 @@ class RealExecutor:
         from repro_torch.device import resolve_device
         from repro_torch.models.lm import LM
         from repro_torch.models.params import init_lm_params
+        if cfg.frontend.kind != "none" or cfg.num_encoder_layers:
+            need = "src_embeds" if cfg.num_encoder_layers else "embeds"
+            raise ValueError(
+                f"RealExecutor serves token prompts only; {cfg.name} also "
+                f"needs {need!r} (the embeddings its "
+                f"{'encoder' if cfg.num_encoder_layers else 'frontend'} "
+                f"reads): run LM.prefill/decode_step with them")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lm = LM(cfg)

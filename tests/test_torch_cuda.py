@@ -4,8 +4,9 @@ contexts that cross split boundaries and its batch invariance, the bf16
 tensor-core flash kernel, ``kv_copy`` on pool and scale rows),
 ``quant_store_tokens`` on the card against the CPU, the paged runner
 on the card against itself on the CPU, bf16 and int8 KV, the dense
-executor likewise on a model with sliding windows, and launches from a
-thread that set no CUDA device.
+executor likewise on models with sliding windows, MoE and SSM layers,
+flash at head_dim 256, and launches from a thread that set no CUDA
+device.
 These need a CUDA card (nvcc builds the kernels at first use); without one
 every test here skips. On the card:
 
@@ -143,6 +144,36 @@ def test_flash_attention_tensor_core_kernel(gen, D, Sq):
             want = ref.flash_attention_ref(q, k, v, causal=True,
                                            window=window, q_offset=off)
             torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,H,Hkv,causal,window,q_offset", [
+    (100, 300, 8, 2, True, 0, 150),       # causal, q_offset, GQA group 4
+    (600, 1000, 4, 1, True, 512, None),   # gemma3's heads, window 512
+    (64, 1024, 16, 2, False, 0, None),    # cross-attention: Sq != Skv, group 8
+    (320, 320, 8, 1, True, 0, 0),         # paligemma's heads, whole prompt
+])
+def test_flash_attention_kernel_head_dim_256(gen, dtype, Sq, Skv, H, Hkv,
+                                             causal, window, q_offset):
+    """head_dim 256 (gemma3, paligemma): the bf16 kernel reads Q from
+    shared memory by descriptor, the fp32 kernel takes its widest tiles;
+    each launches the kernel and agrees with its plain version."""
+    q = randn(gen, (2, Sq, H, 256), dtype)
+    k = randn(gen, (2, Skv, Hkv, 256), dtype)
+    v = randn(gen, (2, Skv, Hkv, 256), dtype)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, force="kernel")
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+def test_flash_attention_kernel_refuses_other_head_dims(gen):
+    q = randn(gen, (1, 8, 2, 96), torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ops.flash_attention(q, q, q, force="kernel")
 
 
 def paged_case(gen, mode, B, ctxs, layered, P=16, H=32, Hkv=8, D=128, L=2,
@@ -349,18 +380,24 @@ def test_kernels_launch_from_a_thread_that_set_no_device(gen):
         assert torch.equal(a, b)
 
 
-def test_dense_executor_on_the_card_matches_the_cpu(gen):
-    """gemma3-1b.reduced() at 6 layers in fp32 (five local layers with a
-    32-token window, one global), prompts longer than the window, under
-    rotation: the dense RealExecutor on CUDA (the flash kernel with its
-    window) emits the streams it emits on the CPU, from the same weights."""
+@pytest.mark.parametrize("arch,layers", [("gemma3-1b", 6),
+                                         ("qwen3-moe-30b-a3b", 4),
+                                         ("mamba2-2.7b", 4),
+                                         ("jamba-1.5-large-398b", 8)])
+def test_dense_executor_on_the_card_matches_the_cpu(gen, arch, layers):
+    """Reduced configs in fp32 under rotation, prompts longer than the
+    32-token window: gemma3 at 6 layers (five local layers, one global),
+    qwen3-moe (MoE), mamba2 (SSM only), jamba at 8 layers (SSM, one
+    attention layer, MoE). The dense RealExecutor on CUDA (the flash
+    kernel, the MoE dispatch and the SSD scan on the card) emits the
+    streams it emits on the CPU, from the same weights."""
     import repro_torch.configs as tcfg
     from repro_torch.core.types import Request
-    from repro_torch.models.params import init_lm_params
+    from repro_torch.models.params import init_lm_params, params_to
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.executor import RealExecutor
-    cfg = dataclasses.replace(tcfg.get_config("gemma3-1b").reduced(),
-                              dtype="float32", num_layers=6)
+    cfg = dataclasses.replace(tcfg.get_config(arch).reduced(),
+                              dtype="float32", num_layers=layers)
     sv = tcfg.ServingConfig(num_hbm_blocks=20, num_dram_blocks=512,
                             block_size=4, max_model_len=64, prefill_chunk=8)
     params = init_lm_params(cfg, torch.Generator().manual_seed(3), "cpu")
@@ -369,11 +406,8 @@ def test_dense_executor_on_the_card_matches_the_cpu(gen):
                  out=int(rng.integers(12, 14))) for _ in range(5)]
     streams = {}
     for device in ("cpu", "cuda"):
-        p = {"layers": [{k: v.to(device) for k, v in layer.items()}
-                        for layer in params["layers"]],
-             "head": {k: v.to(device) for k, v in params["head"].items()}}
         eng = ServingEngine(cfg, sv, tcfg.GH200, real_executor=RealExecutor(
-            cfg, device=device, params=p))
+            cfg, device=device, params=params_to(params, device)))
         for i, r in enumerate(reqs):
             eng.add_request(Request(req_id=i, arrival_time=0.02 * i,
                                     prompt_len=len(r["ids"]),

@@ -40,8 +40,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_new_modules_are_covered_and_import_no_jax():
-    """The modules of the int8 tier, the serving CLI, the HTTP front door
-    and the dense executor are among the files checked above, and importing
+    """The modules of the int8 tier, the serving CLI, the HTTP front door,
+    the dense executor and its LM (MoE, SSM, inputs included) are among
+    the files checked above, and importing
     all of them loads neither JAX nor the reference package (checked in a
     fresh interpreter)."""
     import os
@@ -54,7 +55,8 @@ def test_new_modules_are_covered_and_import_no_jax():
             "repro_torch.serving.server", "repro_torch.launch.server_main",
             "repro_torch.models.attention", "repro_torch.models.blocks",
             "repro_torch.models.lm", "repro_torch.models.params",
-            "repro_torch.serving.executor"]
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.api", "repro_torch.serving.executor"]
     covered = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
     for m in mods:
         assert m.replace(".", "/") + ".py" in covered, m

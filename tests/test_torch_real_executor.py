@@ -1,11 +1,15 @@
 """The port's dense per-request ``RealExecutor`` behind ``EngineCore``
 against the reference's on the CPU: the same weights (bridged with
 ``from_jax_lm_params``), requests and ServingConfig give equal token
-streams with ample HBM and under rotation, for llama3-8b.reduced() and for
+streams with ample HBM and under rotation, for llama3-8b.reduced(),
 gemma3-1b.reduced() at six layers (prompts longer than its 32-token
-window). Plus the swap contract (mid-prefill sentinel, loud errors for a
-lost cache), the adapter, and agreement of the port's paged runner with
-its dense executor on the same seed."""
+window), qwen3-moe-30b-a3b.reduced() (MoE), mamba2-2.7b.reduced() (SSM
+only: its blocks weigh 0 bytes, so rotation is decided on block counts)
+and jamba-1.5-large.reduced() at eight layers (SSM, attention and MoE).
+Plus the swap contract (mid-prefill sentinel, loud errors for a lost
+cache, every tensor of an SSM layer's cache copied like K/V), the refusal
+of configs whose prompts need embeddings, the adapter, and agreement of
+the port's paged runner with its dense executor on the same seed."""
 import dataclasses
 
 import numpy as np
@@ -33,7 +37,11 @@ SEED = 42
 # blocks); gemma3's lengths take few values, since the jitted reference
 # compiles once per prompt length and cache capacity
 CASES = {"llama3-8b": ({}, ((8, 16), (10, 16)), 16),
-         "gemma3-1b": ({"num_layers": 6}, ((37, 38), (12, 14)), 20)}
+         "gemma3-1b": ({"num_layers": 6}, ((37, 38), (12, 14)), 20),
+         "qwen3-moe-30b-a3b": ({}, ((37, 38), (12, 13)), 20),
+         "mamba2-2.7b": ({}, ((37, 38), (12, 13)), 20),
+         "jamba-1.5-large-398b": ({"num_layers": 8}, ((37, 38), (12, 13)),
+                                  20)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -162,6 +170,46 @@ def test_mid_prefill_swap_roundtrip_and_lost_cache_is_loud():
         ex.swap_in(1)
     with pytest.raises(RuntimeError, match="no device cache"):
         ex.decode(1, 3, 8)
+
+
+def test_swap_copies_every_cache_tensor_of_ssm_and_attention_layers():
+    """jamba's caches hold conv_x/conv_b/conv_c/h on SSM layers and k/v on
+    its attention layer; a swap round trip copies each byte for byte into
+    new storage, and decoding after it gives what decoding without it
+    gives."""
+    _, cfg = cfgs("jamba-1.5-large-398b")
+    ex1 = RealExecutor(cfg, seed=7, device="cpu")
+    ex2 = RealExecutor(cfg, seed=7, device="cpu")
+    prompt = list(range(1, 20))
+    tok = ex1.prefill(1, prompt, 32)
+    assert ex2.prefill(1, prompt, 32) == tok
+    kinds = {tuple(sorted(c)) for c in ex2._caches[1]}
+    assert kinds == {("conv_b", "conv_c", "conv_x", "h"), ("k", "v")}
+    orig = [dict(c) for c in ex2._caches[1]]     # kept alive
+    before = [{k: t.clone() for k, t in c.items()} for c in orig]
+    ex2.swap_out(1)
+    ex2.swap_in(1)
+    for a, b, o in zip(before, ex2._caches[1], orig):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+            assert b[k].data_ptr() != o[k].data_ptr(), k
+    t1 = t2 = tok
+    for i in range(3):
+        t1 = ex1.decode(1, t1, len(prompt) + i)
+        t2 = ex2.decode(1, t2, len(prompt) + i)
+        assert t1 == t2
+
+
+@pytest.mark.parametrize("arch,need", [("paligemma-3b", "'embeds'"),
+                                       ("seamless-m4t-medium",
+                                        "'src_embeds'")])
+def test_configs_whose_prompts_need_embeddings_are_refused(arch, need):
+    """RealExecutor.prefill passes only tokens, as the reference's does
+    (which fails at its first prefill with a KeyError); the port refuses
+    at construction and names the missing input."""
+    cfg = tc.get_config(arch).reduced()
+    with pytest.raises(ValueError, match=need):
+        RealExecutor(cfg, device="cpu")
 
 
 def test_adapter_forwards_lifecycle_and_skips_idless_requests():
