@@ -25,20 +25,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), H a multiple of Hkv (query
     head h reads kv head h // (H // Hkv)). Full materialized attention in
-    fp32 -> (B, Sq, H, D).
+    fp32 (fp64 for fp64 inputs) -> (B, Sq, H, D).
 
     Query row i sits at absolute position ``q_offset + i`` in the kv stream;
     ``q_offset=None`` aligns the queries to the kv tail (``Skv - Sq``), as
     the JAX oracle does. A row that sees no key (possible only with a
-    window, or with queries past ``Skv``) returns zeros.
+    window, or with queries past ``Skv``) returns zeros. The cast points
+    are the reference jnp attention's: q * scale and the unnormalized
+    probabilities are rounded to the input dtype, the rest is fp32.
     """
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     off = Skv - Sq if q_offset is None else q_offset
     scale = D ** -0.5 if softmax_scale is None else softmax_scale
-    kf = k.float().repeat_interleave(H // Hkv, dim=2)
-    vf = v.float().repeat_interleave(H // Hkv, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)   # fp64 stays fp64
+    kf = k.to(acc).repeat_interleave(H // Hkv, dim=2)
+    vf = v.to(acc).repeat_interleave(H // Hkv, dim=2)
+    # q is scaled in its own dtype, as the reference's jnp attention does
+    s = torch.einsum("bqhd,bkhd->bhqk", (q * scale).to(acc), kf)
     qpos = off + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
     mask = kpos < (Skv if kv_len is None else kv_len)
@@ -47,8 +51,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window > 0:
         mask = mask & (kpos > qpos - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1) * mask.any(dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)                     # (B, H, Sq, 1)
+    # P meets V in the input dtype (bf16 rounds it), as in the reference's
+    # jnp attention and the kernel; the row sum l stays unrounded
+    p = p.to(q.dtype).to(acc) * mask.any(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)
     return out.to(q.dtype)
 
 

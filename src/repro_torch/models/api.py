@@ -1,23 +1,30 @@
-"""Model inputs: the step's input shapes per (architecture, shape) cell,
-demo inputs that match them, and the training microbatch knob.
+"""Model inputs and step functions per (architecture, shape) cell: the
+step's input shapes, demo inputs that match them, the training microbatch
+knob, and the step callable.
 
 The port of ``recommended_microbatches``, ``_frontend_len``,
-``batch_specs`` and ``make_demo_inputs`` (``src/repro/models/api.py:21-61,
-154-172``). ``make_demo_inputs`` draws from ``numpy.random.default_rng(0)``
-in the reference's order, so both packages get equal inputs. The
-reference's ``StepBundle``/``make_step_bundle`` (jit and dry-run tooling)
-wait for the training stack and tooling (ROADMAP.md §1 items 9 and 10).
+``batch_specs``, ``StepBundle``, ``make_step_bundle`` and
+``make_demo_inputs`` (``src/repro/models/api.py``). ``make_demo_inputs``
+draws from ``numpy.random.default_rng(0)`` in the reference's order, so
+both packages get equal inputs. A ``StepBundle`` holds the step callable
+and its ``static_meta``; the reference's structs, logical axes, donation
+and byte groups serve its dry-run and wait for the tooling (ROADMAP.md §1
+item 10c), and the batch-shard rounding of the microbatch count for a mesh
+waits for tensor parallelism (item 3).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.common import dtype_of
+from repro_torch.models.lm import LM
+from repro_torch.optimizer import adamw
+from repro_torch.training import step as train_step_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +73,41 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, InputSpec]:
         out["token"] = InputSpec((B,), "int32")
         out["cache_len"] = InputSpec((), "int32")
     return out
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """One (arch x shape) cell's step: ``fn`` is ``train_step(state,
+    batch)``, ``prefill(params, batch)`` or ``decode(params, caches,
+    batch)``."""
+    kind: str
+    fn: Any
+    static_meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def make_step_bundle(cfg: ModelConfig, shape: ShapeConfig, *,
+                     opt_cfg: Optional[adamw.AdamWConfig] = None,
+                     microbatches: Optional[int] = None,
+                     remat: bool = True, remat_group: int = 1,
+                     accum_dtype: str = "float32") -> StepBundle:
+    lm = LM(cfg, remat_group=remat_group)
+    if shape.kind == "train":
+        opt_cfg = opt_cfg or adamw.AdamWConfig()
+        mb = microbatches or recommended_microbatches(cfg)
+        fn = train_step_lib.make_train_step(lm, opt_cfg, microbatches=mb,
+                                            remat=remat,
+                                            accum_dtype=accum_dtype)
+        return StepBundle("train", fn, {"microbatches": mb,
+                                        "remat_group": remat_group,
+                                        "moments_dtype":
+                                            opt_cfg.moments_dtype,
+                                        "accum_dtype": accum_dtype})
+    capacity = shape.seq_len
+    if shape.kind == "prefill":
+        def prefill_fn(params, batch):
+            return lm.prefill(params, batch, capacity)
+        return StepBundle("prefill", prefill_fn, {"capacity": capacity})
+    return StepBundle("decode", lm.decode_step, {"capacity": capacity})
 
 
 def make_demo_inputs(cfg: ModelConfig, shape: ShapeConfig,

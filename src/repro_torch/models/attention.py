@@ -11,6 +11,14 @@ on the CPU the plain version; never a library attention. The reference's
 ``chunk_q``/``chunk_kv`` set the jnp version's tile sizes and have no
 counterpart here: the kernel has its own tiles.
 
+With grad enabled and an input that needs it, ``flash_attention`` runs
+as ``FlashAttention``, an ``autograd.Function``: its forward is the same
+call (the kernel on CUDA, the plain version on the CPU), and its backward
+(``flash_attention_backward``) is plain PyTorch that recomputes the
+softmax per chunk of query rows. That is the counterpart of the
+reference's training path, which differentiates its jnp chunked attention
+with ``jax.value_and_grad``; the reference has no backward kernel.
+
 ``decode_attention`` and ``update_cache`` are the reference's jnp functions
 (``:113-146``), which run outside any Pallas kernel; plain PyTorch is their
 counterpart. Scores and the value product accumulate in fp32, as the
@@ -25,13 +33,92 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 
 NEG_INF = -1e30
+BWD_CHUNK_Q = 256     # query rows whose scores the backward holds at once
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    softmax_scale)
     return _flash(q, k, v, causal=causal, window=window, q_offset=q_offset,
                   softmax_scale=softmax_scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward kernel (or, on the
+    CPU, the plain version), and ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, softmax_scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        softmax_scale=softmax_scale)
+        return _flash(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             q_offset: Optional[int] = 0,
+                             softmax_scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
+    gradient ``dout`` (B, Sq, H, D). Per chunk of ``BWD_CHUNK_Q`` query rows it
+    recomputes the scores over the keys those rows can see (causal bound,
+    window, ``q_offset``), under the forward's mask, so it never holds the
+    whole (B, H, Sq, Skv) score tensor. A row that sees no key has output 0
+    and gets a zero gradient. GQA: dk and dv sum over each kv head's group
+    of query heads. Accumulates in fp32 (fp64 for fp64 inputs); returns the
+    inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    off = Skv - Sq if q_offset is None else int(q_offset)
+    scale = D ** -0.5 if softmax_scale is None else float(softmax_scale)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc).reshape(B, Sq, Hkv, G, D)
+    do = dout.to(acc).reshape(B, Sq, Hkv, G, D)
+    kf, vf = k.to(acc), v.to(acc)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for r0 in range(0, Sq, BWD_CHUNK_Q):
+        r1 = min(Sq, r0 + BWD_CHUNK_Q)
+        # the keys rows [r0, r1) can see: [lo, hi)
+        hi = min(Skv, off + r1) if causal else Skv
+        lo = max(0, off + r0 - window + 1) if window > 0 else 0
+        if hi <= lo:
+            continue
+        qpos = off + torch.arange(r0, r1, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones((r1 - r0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window > 0:
+            mask = mask & (kpos > qpos - window)
+        kc, vc = kf[:, lo:hi], vf[:, lo:hi]
+        qc, dc = qf[:, r0:r1], do[:, r0:r1]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qc, kc) * scale
+        s = s.masked_fill(~mask, NEG_INF)
+        # zero where masked: a row that sees no key has p = 0, not 1/n
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True)) * mask
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dc, vc)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        dq[:, r0:r1] = torch.einsum("bkgqs,bskd->bqkgd", ds, kc) * scale
+        dk[:, lo:hi] += torch.einsum("bkgqs,bqkgd->bskd", ds, qc) * scale
+        dv[:, lo:hi] += torch.einsum("bkgqs,bqkgd->bskd", p, dc)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _bound(b: Union[int, torch.Tensor], like: torch.Tensor):

@@ -11,7 +11,12 @@ layers in program order, and the weights are one dict per layer
 (``models/params.py``). An encoder-decoder config encodes its source
 embeddings with a non-causal stack that the decoder's cross-attention
 reads; a decoder with a frontend puts its projected embeddings before the
-tokens. ``train_loss`` waits for the training stack (ROADMAP.md §1 item 9).
+tokens. ``train_loss`` is the training objective; with ``remat`` it runs
+the decoder's layers in groups of ``remat_group`` under
+``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` and grouped remat. The reference's ``scan_unroll``
+serves its dry-run only and waits for the tooling (ROADMAP.md §1 item
+10c).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
@@ -81,10 +87,17 @@ class LM:
     ``conv_x``/``conv_b``/``conv_c``/``h``, and ``ck``/``cv`` (the encoder
     memory's keys and values) on cross-attention layers; ``decode_step``
     updates those caches in place.
+
+    ``remat_group=g``: ``train_loss(..., remat=True)`` checkpoints every
+    g consecutive decoder layers as one group, so it saves one activation
+    per group and recomputes the group's layers in the backward.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, remat_group: int = 1):
+        if remat_group < 1:
+            raise ValueError(f"remat_group must be >= 1, got {remat_group}")
         self.cfg = cfg
+        self.remat_group = remat_group
         self.program = build_program(cfg, decoder=True)
         self.enc_program = (build_program(cfg, decoder=False)
                             if cfg.num_encoder_layers else [])
@@ -154,6 +167,36 @@ class LM:
             new_caches.append(nc)
         return self._logits(params, x), new_caches
 
-    def train_loss(self, params, batch):
-        raise NotImplementedError("training is not ported yet "
-                                  "(ROADMAP.md §1 item 9)")
+    def _run_layers(self, layers, x, positions, memory):
+        for spec, p in layers:
+            x, _ = blocks.apply_layer_seq(self.cfg, spec, p, x, positions,
+                                          memory=memory)
+        return x
+
+    def train_loss(self, params, batch, *, remat: bool = True
+                   ) -> torch.Tensor:
+        """batch: tokens, labels, mask (B, S) [+ embeds or src_embeds]. The
+        mean next-token NLL over the mask, from fp32 logits over the token
+        region (after a frontend's embeddings)."""
+        cfg = self.cfg
+        memory = (self._encode(params, batch["src_embeds"])
+                  if self.enc_program else None)
+        x = self._assemble_input(params, batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        layers = list(zip(self.specs, params["layers"], strict=True))
+        if remat:
+            g = self.remat_group
+            for i in range(0, len(layers), g):
+                x = checkpoint(self._run_layers, layers[i:i + g], x,
+                               positions, memory, use_reentrant=False)
+        else:
+            x = self._run_layers(layers, x, positions, memory)
+        if cfg.frontend.kind != "none" and not self.enc_program:
+            x = x[:, -batch["tokens"].shape[1]:]
+        logits = self._logits(params, x).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            batch["labels"].long()[..., None])[..., 0]
+        mask = batch["mask"].float()
+        return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

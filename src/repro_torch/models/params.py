@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import LayerSpec, make_layer_spec
 from repro_torch.models.common import dtype_of
+from repro_torch.optimizer.adamw import TensorSpec
 
 
 def _attn_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, tuple]:
@@ -119,18 +120,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         dtype=torch.float32)
         return w.mul_(1.0 / np.sqrt(max(shape[0], 1))).to(dtype)
 
-    def draw_tree(shapes):
-        return {k: draw_tree(v) if isinstance(v, dict) else draw(*v)
+    return _map_shapes(cfg, draw)
+
+
+def _map_shapes(cfg: ModelConfig, fn) -> Dict[str, object]:
+    """The weight tree with ``fn(shape, init)`` at each leaf, built layer
+    by layer in execution order, then the head, then the encoder."""
+    def tree(shapes):
+        return {k: tree(v) if isinstance(v, dict) else fn(*v)
                 for k, v in shapes.items()}
 
-    tree = {"layers": [draw_tree(layer_shapes(cfg, make_layer_spec(cfg, i)))
-                       for i in range(cfg.num_layers)],
-            "head": draw_tree(head_shapes(cfg))}
+    out = {"layers": [tree(layer_shapes(cfg, make_layer_spec(cfg, i)))
+                      for i in range(cfg.num_layers)],
+           "head": tree(head_shapes(cfg))}
     if cfg.num_encoder_layers:
         enc = layer_shapes(cfg, make_layer_spec(cfg, 0, decoder=False))
-        tree["encoder"] = [draw_tree(enc)
-                           for _ in range(cfg.num_encoder_layers)]
-    return tree
+        out["encoder"] = [tree(enc) for _ in range(cfg.num_encoder_layers)]
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, object]:
+    """The weight tree of ``init_lm_params`` with ``TensorSpec(shape,
+    dtype)`` leaves, allocating nothing."""
+    dt = dtype_of(cfg.dtype)
+    return _map_shapes(cfg, lambda shape, _: TensorSpec(tuple(shape), dt))
 
 
 def params_to(tree, device):

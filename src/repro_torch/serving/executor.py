@@ -185,6 +185,10 @@ class RealExecutor:
     each. ``prefill`` passes only the prompt's tokens, as the reference's
     does, so a config with a frontend or an encoder, which needs its
     embeddings too, is refused at construction.
+
+    ``record_margins = True`` makes the executor keep, per request, the
+    top-2 logit margin of every token it emits (``margins``), read in the
+    same host sync as the token, as the paged runner's do.
     """
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, *, device=None,
@@ -210,6 +214,21 @@ class RealExecutor:
         self._caches: Dict[int, list] = {}   # req_id -> per-layer caches
         self._host: Dict[int, Optional[list]] = {}   # req_id -> CPU copies
         self._tokens: Dict[int, List[int]] = {}
+        self.record_margins = False
+        self.margins: Dict[int, List[float]] = {}
+
+    def _emit(self, req_id: int, logits) -> int:
+        """The argmax of a (1, V) logits row and its top-2 margin (fp32),
+        read in one host sync; the token is appended to the request's."""
+        import torch
+        row = logits[0]
+        top2 = row.float().topk(2).values
+        tok, margin = torch.stack([row.argmax().float(),
+                                   top2[0] - top2[1]]).tolist()
+        if self.record_margins:
+            self.margins.setdefault(req_id, []).append(margin)
+        self._tokens.setdefault(req_id, []).append(int(tok))
+        return int(tok)
 
     def prefill(self, req_id: int, tokens: Sequence[int], capacity: int) -> int:
         import torch
@@ -218,9 +237,8 @@ class RealExecutor:
         logits, cache = self.lm.prefill(self.params, {"tokens": toks},
                                         capacity)
         self._caches[req_id] = cache
-        nxt = int(logits[0].argmax())
-        self._tokens[req_id] = [nxt]
-        return nxt
+        self._tokens[req_id] = []
+        return self._emit(req_id, logits)
 
     def decode(self, req_id: int, token: int, cache_len: int) -> int:
         import torch
@@ -234,9 +252,7 @@ class RealExecutor:
                                    device=self.device),
              "cache_len": int(cache_len)})
         self._caches[req_id] = cache
-        nxt = int(logits[0].argmax())
-        self._tokens[req_id].append(nxt)
-        return nxt
+        return self._emit(req_id, logits)
 
     # rotation = copy the caches off the device and back — the real data path
     def swap_out(self, req_id: int) -> None:

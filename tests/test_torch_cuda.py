@@ -5,8 +5,9 @@ tensor-core flash kernel, ``kv_copy`` on pool and scale rows),
 ``quant_store_tokens`` on the card against the CPU, the paged runner
 on the card against itself on the CPU, bf16 and int8 KV, the dense
 executor likewise on models with sliding windows, MoE and SSM layers,
-flash at head_dim 256, and launches from a thread that set no CUDA
-device.
+flash at head_dim 256, launches from a thread that set no CUDA device,
+and the training path's flash ``autograd.Function`` (kernel forward,
+plain backward) against the CPU's.
 These need a CUDA card (nvcc builds the kernels at first use); without one
 every test here skips. On the card:
 
@@ -417,3 +418,30 @@ def test_dense_executor_on_the_card_matches_the_cpu(gen, arch, layers):
         streams[device] = {r.req_id: list(r.generated_ids)
                            for r in eng.core.submitted}
     assert streams["cuda"] == streams["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,H,Hkv,D,causal,window,q_offset", [
+    (40, 40, 4, 1, 16, True, 32, 0),     # the reduced gemma3's local layer
+    (300, 300, 4, 1, 256, True, 128, 0),  # head_dim 256 under a window
+    (37, 90, 8, 2, 64, True, 0, 53),      # a chunk at q_offset
+    (24, 57, 4, 4, 32, False, 0, 0),      # cross-attention, Sq != Skv
+])
+def test_flash_function_gradient_on_the_card_matches_the_cpu(
+        gen, dtype, Sq, Skv, H, Hkv, D, causal, window, q_offset):
+    """The training path's ``FlashAttention``: the kernel forward and the
+    plain backward on the card against the plain forward and the same
+    backward on the CPU."""
+    from repro_torch.models.attention import flash_attention
+    q, k, v = (randn(gen, (2, S, h, D), dtype)
+               for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+    dout = randn(gen, (2, Sq, H, D), dtype)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        qd, kd, vd = (t.to(dev).requires_grad_() for t in (q, k, v))
+        out = flash_attention(qd, kd, vd, causal=causal, window=window,
+                              q_offset=q_offset)
+        grads = torch.autograd.grad(out, (qd, kd, vd), dout.to(dev))
+        outs.append([t.float().cpu() for t in (out, *grads)])
+    for name, a, b in zip(("out", "dq", "dk", "dv"), *outs):
+        torch.testing.assert_close(a, b, **TOL[dtype], msg=name)

@@ -140,14 +140,21 @@ def test_decode_attention_and_update_cache_match_reference():
 @pytest.mark.parametrize("what,item", [("moe over a mesh", "item 7b"),
                                        ("train_loss", "item 9")])
 def test_unported_layer_kinds_raise(what, item):
-    """Every layer kind runs now; what the port still lacks raises, naming
-    its ROADMAP item: expert parallelism and training."""
+    """Every layer kind runs now, and training (``item 9``) is ported: its
+    loss runs. What the port still lacks raises, naming its ROADMAP item:
+    expert parallelism (item 7b) and training over a mesh (item 3)."""
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models import moe
+    from repro_torch.models.api import make_demo_inputs
     _, cfg = cfgs("qwen3-moe-30b-a3b")
     params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if what == "train_loss":
+        batch = make_demo_inputs(cfg, tc.ShapeConfig("t", 16, 2, "train"))
+        assert torch.isfinite(LM(cfg).train_loss(params, batch))
+        with pytest.raises(NotImplementedError, match="item 3"):
+            train_main(["--arch", cfg.name.removesuffix("-reduced"),
+                        "--reduced", "--device", "cpu", "--mesh", "2,2"])
+        return
     with pytest.raises(NotImplementedError, match=item):
-        if what == "train_loss":
-            LM(cfg).train_loss(params, {})
-        else:
-            moe.moe_ffn(torch.zeros((1, 2, cfg.d_model)),
-                        params["layers"][0]["moe"], cfg.moe, mesh=object())
+        moe.moe_ffn(torch.zeros((1, 2, cfg.d_model)),
+                    params["layers"][0]["moe"], cfg.moe, mesh=object())

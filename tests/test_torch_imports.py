@@ -1,5 +1,6 @@
-"""Import hygiene of the port: no file of ``src/repro_torch`` and no line
-of ``chip_smoke.py`` imports JAX or the JAX package, and the port's entry
+"""Import hygiene of the port: no file of ``src/repro_torch`` or
+``examples/torch`` and no line of ``chip_smoke.py`` imports JAX or the JAX
+package, and the port's entry
 points never fall back to the CPU on their own."""
 import ast
 import re
@@ -11,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples" / "torch").glob(
+        "*.py"))
 FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
 
 
@@ -41,7 +43,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_new_modules_are_covered_and_import_no_jax():
     """The modules of the int8 tier, the serving CLI, the HTTP front door,
-    the dense executor and its LM (MoE, SSM, inputs included) are among
+    the dense executor and its LM (MoE, SSM, inputs included) and the
+    training stack (data, optimizer, train step, checkpoints, launcher) are
+    among
     the files checked above, and importing
     all of them loads neither JAX nor the reference package (checked in a
     fresh interpreter)."""
@@ -56,8 +60,12 @@ def test_new_modules_are_covered_and_import_no_jax():
             "repro_torch.models.attention", "repro_torch.models.blocks",
             "repro_torch.models.lm", "repro_torch.models.params",
             "repro_torch.models.moe", "repro_torch.models.ssm",
-            "repro_torch.models.api", "repro_torch.serving.executor"]
-    covered = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
+            "repro_torch.models.api", "repro_torch.serving.executor",
+            "repro_torch.data.pipeline", "repro_torch.optimizer.adamw",
+            "repro_torch.training.step", "repro_torch.checkpoint.ckpt",
+            "repro_torch.launch.train", "repro_torch.tree"]
+    covered = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES
+               if ROOT / "src" in p.parents}
     for m in mods:
         assert m.replace(".", "/") + ".py" in covered, m
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)

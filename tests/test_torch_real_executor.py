@@ -243,3 +243,33 @@ def test_adapter_forwards_lifecycle_and_skips_idless_requests():
                      {0: r})
     assert isinstance(out, ExecutionResult)
     assert out.tokens == {}         # no prompt_ids -> oracle mode, no token
+
+
+def test_margins_equal_paged_runner():
+    """With ``record_margins``, the dense executor keeps the top-2 logit
+    margin of every token it emits, as the paged runner does: on one seed's
+    weights and the same requests, equal streams and margins within 1e-5
+    (fp32; the two run prefill in different chunks)."""
+    _, cfg = cfgs("llama3-8b")
+    lens = CASES["llama3-8b"][1]
+    out = []
+    for paged in (False, True):
+        real = None if paged else RealExecutor(cfg, seed=SEED, device="cpu")
+        eng = TServingEngine(cfg, serving(tc, 4096, paged), tc.GH200,
+                             real_executor=real, runner_cfg=cfg,
+                             runner_seed=SEED, device="cpu")
+        ex = eng.executor if paged else real
+        ex.record_margins = True
+        for r in make_requests(TRequest, cfg.vocab_size, lens):
+            eng.add_request(r)
+        eng.drain(max_time_s=500)
+        out.append(({r.req_id: list(r.generated_ids)
+                     for r in eng.core.submitted}, ex.margins))
+    (dense, dm), (paged, pm) = out
+    assert dense == paged
+    assert sorted(dm) == sorted(pm) == sorted(dense)
+    for rid, toks in dense.items():
+        assert len(dm[rid]) == len(pm[rid]) == len(toks)
+        np.testing.assert_allclose(dm[rid], pm[rid], atol=1e-5, rtol=0,
+                                   err_msg=f"request {rid}")
+        assert min(dm[rid]) >= 0
