@@ -77,7 +77,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    geometry (``examples/torch/train_100m.py``: width 512, 12 layers, 30
    steps), whose loss must fall; and the reduced gemma3-1b (6 layers) in
    fp32, loss and every gradient on the card against the CPU (loss within
-   1e-5 relative, gradients within atol 1e-5, rtol 1e-4).
+   1e-5 relative, gradients within atol 1e-5, rtol 1e-4);
+13. tooling (target 90 s): ``repro_torch.launch.audit_donation.audit`` at
+   llama3-8b's full width with bf16 weights and S1 (a)'s pool (1,024 HBM
+   blocks, block 16, chunk 512), bf16 and int8 KV: every launch entry
+   (row copy, upload, decode, prefill) keeps its buffers and writes them,
+   with its peak memory growth below the pool's bytes, and the
+   out-of-place control is caught; the roofline of one S1 decode
+   iteration (B=8, contexts about 1,024, bf16: ``launch/roofline.py``'s
+   terms against the traced device ms and the wall ms); then as
+   subprocesses ``python -m repro_torch.launch.inspect_hlo --arch
+   llama3-8b --shape decode_32k --periods 1`` and, alongside it, ``python
+   -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k --mesh
+   both``, each of which must exit 0.
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -95,6 +107,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -104,8 +117,6 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_S = 3.35e12            # H100 SXM device memory, bytes/s
-PEAK_BF16_FLOPS = 989e12          # dense tensor-core rate, FLOP/s
 TOL = {"bf16": 2e-2, "fp32": 1e-5}   # atol = rtol: bf16 output rounding
 #                                      (the reference kernel tests' bf16
 #                                      tolerance); fp32 summation order
@@ -455,9 +466,14 @@ def int8_checks(torch, ops, ref, quant, cfg, errs, dev="cuda"):
 def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
     """Each kernel at main-path shapes in bf16: a dict of ms (CUDA events),
     kernel_ms (the kernel alone, from a trace) with its trace_attempts,
-    plain_ms, bound_ms, bound_by and library_ms."""
+    plain_ms, bound_ms, bound_by and library_ms. The bound is each kernel's
+    ``flops_and_bytes`` at these inputs over the H100's peaks."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import kv_copy as kv_copy_k
+    from repro_torch.kernels import paged_attention as paged_k
+    from repro_torch.launch.roofline import HBM_BYTES_S, PEAK_BF16_FLOPS
     dt, e = torch.bfloat16, 2
     L, Hkv, D, H = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     P, NB, staging = 16, 1024, 64
@@ -467,8 +483,9 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
                        dtype=torch.float32).to(dt)
     out = {}
 
-    def timed(name, family, kernel, plain, nbytes, flops, library=None):
-        tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    def timed(name, family, kernel, plain, cost, library=None):
+        """``cost``: the kernel's (FLOPs, bytes) at these inputs."""
+        tb, tf = cost[1] / HBM_BYTES_S * 1e3, cost[0] / PEAK_BF16_FLOPS * 1e3
         ms = time_ms(torch, kernel)
         alone, attempts = kernel_trace(torch, kernel, family, name)
         out[name] = dict(ms=ms, kernel_ms=alone, trace_attempts=attempts,
@@ -483,10 +500,10 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
     dst = np.arange(NB - 64, NB, dtype=np.int32)
     s_t = torch.from_numpy(src.astype(np.int64)).to(dev)
     d_t = torch.from_numpy(dst.astype(np.int64)).to(dev)
-    row_bytes = flat[0].numel() * e
     timed(
         "kv_copy", "kv_copy", lambda: ops.kv_copy(flat, src, dst, force="kernel"),
-        lambda: ref.kv_copy_ref(flat, src, dst), 2 * 64 * row_bytes, 0,
+        lambda: ref.kv_copy_ref(flat, src, dst),
+        kv_copy_k.flops_and_bytes(64, flat[0].numel() * e),
         lambda: flat.index_copy_(0, d_t, flat.index_select(0, s_t)))
     # paged attention in both modes: decode B=32 at context 1024 on one
     # layer of the pool (the shape timed since the first port), then the
@@ -500,13 +517,12 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
         bt = torch.randint(0, NB, (B, MB), generator=g, device=dev,
                            dtype=torch.int32)
         cl = torch.full((B,), ctx, device=dev, dtype=torch.int32)
-        flops = 4 * B * ctx * H * D
-        small = 2 * B * H * D * e + B * MB * 4 + B * 4   # q, out, bt, cl
         for name, kv, sc, kv_bytes in (
                 ("paged_attention", pool, None, e),
                 ("paged_attention_int8", qpool, qscales, 1)):
-            nbytes = (small + B * ctx * Hkv * D * 2 * kv_bytes
-                      + (0 if sc is None else B * MB * 2 * Hkv * 4))
+            cost = paged_k.flops_and_bytes(
+                B, H, Hkv, D, MB, B * ctx, itemsize=e, kv_itemsize=kv_bytes,
+                quant=sc is not None)
             layers = itertools.count()
 
             def layer():
@@ -517,7 +533,7 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
                     force="kernel"),
                 lambda: ref.paged_attention_ref(
                     q, kv, bt, cl, layer=layer(), kv_scales=sc),
-                nbytes, flops)
+                cost)
     # the int8 tier's K/V store (plain PyTorch, not a kernel), one side of
     # one layer: a 512-token prefill chunk (its rescale gathers the whole
     # (T, P, Hkv, D) slab) and a 32-lane decode step
@@ -539,8 +555,8 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
     q = torch.randn((1, T, H, D), generator=g, device=dev).to(dt)
     k = torch.randn((1, Skv, Hkv, D), generator=g, device=dev).to(dt)
     v = torch.randn((1, Skv, Hkv, D), generator=g, device=dev).to(dt)
-    pairs = sum(min(Skv, off + i + 1) for i in range(T))
-    nbytes = 2 * T * H * D * e + 2 * Skv * Hkv * D * e
+    cost = flash_k.flops_and_bytes(1, T, Skv, H, Hkv, D, causal=True,
+                                   window=0, q_offset=off, itemsize=e)
     mask = (torch.arange(Skv, device=dev)[None, :]
             <= off + torch.arange(T, device=dev)[:, None])
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -548,7 +564,7 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
         "flash_attention", "flash_attention", lambda: ops.flash_attention(
             q, k, v, causal=True, q_offset=off, force="kernel"),
         lambda: ref.flash_attention_ref(q, k, v, causal=True, q_offset=off),
-        nbytes, 4 * pairs * H * D,
+        cost,
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                enable_gqa=True))
     # flash at head_dim 256: gemma3-1b's heads (4/1), a 512-token chunk at
@@ -565,8 +581,9 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
         pos = off + torch.arange(T, device=dev)[:, None]
         kpos = torch.arange(Skv, device=dev)[None, :]
         mask = (kpos <= pos) & ((kpos > pos - win) if win else True)
-        pairs = int(mask.sum())
-        nbytes = 2 * T * h * d * e + 2 * Skv * hkv * d * e
+        cost = flash_k.flops_and_bytes(
+            1, T, Skv, h, hkv, d, causal=True, window=win, q_offset=off,
+            itemsize=e)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         timed(
             "flash_attention" + tag, "flash_attention", lambda: ops.flash_attention(
@@ -574,7 +591,7 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
                 force="kernel"),
             lambda: ref.flash_attention_ref(q, k, v, causal=True, window=win,
                                             q_offset=off),
-            nbytes, 4 * pairs * h * d,
+            cost,
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True))
     # flash at the training shape (phase 12): gemma3-1b's heads, a
@@ -598,7 +615,8 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
             q, k, v, causal=True, window=win, q_offset=0, force="kernel"),
         lambda: ref.flash_attention_ref(q, k, v, causal=True, window=win,
                                         q_offset=0),
-        2 * Bt * St * (h + hkv) * d * e, 4 * pairs * h * d,
+        flash_k.flops_and_bytes(Bt, St, St, h, hkv, d, causal=True,
+                                window=win, q_offset=0, itemsize=e),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                enable_gqa=True))
     # dq, dk, dv from q, k, v, dout: 10 operations a visible (query, key)
@@ -1583,6 +1601,184 @@ def train_phase(torch):
     return launches
 
 
+# --------------------------------------------------------------- phase 13
+
+def roofline_decode(torch, cfg, steps=3, device="cuda"):
+    """The roofline of one S1 decode iteration on ``device``: ``cfg``
+    (llama3-8b at full width in bf16 on the card) through
+    ``ServingEngine`` with the paged runner, 8 requests of
+    1,016 prompt tokens (context about 1,024); once every request decodes,
+    ``steps`` iterations are traced (device ms) and timed (wall ms, ending
+    in a synchronize), then one more runs under ``FlopCounterMode``.
+    FLOPs: the aten matmuls counted plus the paged kernel's own
+    (``flops_and_bytes`` over this iteration's contexts, a launch a
+    layer); bytes: the weights once, the K/V the kernel reads, the fp32
+    logits (``roofline.analytic_memory_bytes``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import GH200, ServingConfig, ShapeConfig
+    from repro_torch.core.types import RequestState, SamplingParams
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.launch import roofline
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.tree import tree_leaves
+    B, plen = 8, 1016
+    sv = ServingConfig(num_hbm_blocks=1024, paged_runner=True, block_size=16,
+                       prefill_chunk=512, kv_dtype="bf16")
+    eng = ServingEngine(cfg, sv, GH200, runner_seed=0, device=device)
+    rng = np.random.default_rng(13)
+    handles = [eng.add_request(
+        prompt_ids=[int(x) for x in rng.integers(1, cfg.vocab_size, plen)],
+        sampling_params=SamplingParams(max_tokens=64)) for _ in range(B)]
+    for _ in range(200):
+        if all(h.request.state == RequestState.RUNNING
+               and h.request.generated_ids for h in handles):
+            break
+        eng.step()
+    else:
+        raise AssertionError("roofline: the requests never all decoded")
+    ex = eng.executor
+    eng.step()                                   # a decode-only warm-up
+    torch.cuda.synchronize()
+    batches, chunks = ex.decode_batches, ex.prefill_chunks_run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if (ex.decode_batches - batches != steps
+            or ex.prefill_chunks_run != chunks):
+        raise AssertionError("roofline: the traced iterations were not "
+                             "decode-only")
+    by_family = device_time_by_family(prof)
+    device_ms = sum(by_family.values()) / steps
+    ctx = [h.request.total_len for h in handles]    # this step's contexts
+    with FlopCounterMode(display=False) as fc:
+        eng.step()
+        torch.cuda.synchronize()
+    L = cfg.num_layers
+    e = 2
+    mb = 1 << max(-(-max(ctx) // 16) - 1, 0).bit_length()
+    pf, _ = paged.flops_and_bytes(B, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.head_dim, mb, sum(ctx), itemsize=e,
+                                   kv_itemsize=e, quant=False)
+    aten = float(fc.get_total_flops())
+    flops = aten + L * pf
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves({"l": ex._layers, "h": ex._head}))
+    kv = sum(ctx) * L * 2 * cfg.num_kv_heads * cfg.head_dim * e
+    shape = ShapeConfig("s1_decode", int(np.mean(ctx)), B, "decode")
+    mem = roofline.analytic_memory_bytes(
+        cfg, shape, weights_local=weights, opt_local=0, cache_local=kv,
+        data_shards=1, model_shards=1, fsdp_shards=1)
+    summ = roofline.summarize(cfg, shape, 1, {"flops": flops}, {}, mem)
+    bound_ms = summ["step_s_lower_bound"] * 1e3
+    res = dict(flops=flops, aten_flops=aten, paged_flops=L * pf,
+               model_flops=summ["model_flops_global"], bytes=mem["total"],
+               weights_bytes=weights, kv_bytes=kv, logits_bytes=mem["logits"],
+               compute_ms=summ["compute_s"] * 1e3,
+               memory_ms=summ["memory_s"] * 1e3, bound_ms=bound_ms,
+               bottleneck=summ["bottleneck"], device_ms=device_ms,
+               wall_ms=wall_ms, share_of_device=bound_ms / device_ms,
+               share_of_wall=bound_ms / wall_ms, contexts=ctx,
+               device_ms_by_family={k: v / steps
+                                    for k, v in by_family.items()})
+    log(f"roofline S1 decode iteration (B={B}, contexts {min(ctx)}-"
+        f"{max(ctx)}, bf16): FLOPs {flops:.4e} (aten {aten:.4e} + paged "
+        f"{L * pf:.4e}; model_flops {res['model_flops']:.4e}), bytes "
+        f"{mem['total']:.4e} (weights {weights}, KV {kv}, logits "
+        f"{mem['logits']:.0f}); compute {res['compute_ms']:.4f} ms, memory "
+        f"{res['memory_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({summ['bottleneck']}); measured device {device_ms:.4f} ms, wall "
+        f"{wall_ms:.4f} ms a iteration (mean of {steps}); bound / device "
+        f"{res['share_of_device']:.4f}, bound / wall "
+        f"{res['share_of_wall']:.4f}; device ms by family "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            res["device_ms_by_family"].items(), key=lambda kv: -kv[1])))
+    del eng, ex, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tool_run(args, timeout):
+    """Run ``python -m <args>`` from the repository root with ``src`` on the
+    path; log its output; fail on a non-zero exit."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m"] + args, cwd=root, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    for line in (r.stdout + r.stderr).splitlines():
+        if "profiler_st" not in line:       # the profiler's USDT chatter
+            log(f"  | {line}")
+    log(f"{args[0]}: rc {r.returncode} in {time.perf_counter() - t0:.2f} s")
+    if r.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {r.returncode}")
+
+
+def tooling_phase(torch):
+    """The launch tooling on the card: (a) the in-place audit at llama3-8b's
+    full width in bf16 weights with S1 (a)'s pool (1,024 HBM blocks, block
+    16, chunk 512), bf16 and int8 KV, every launch entry in place with its
+    peak memory growth below the pool's bytes, the out-of-place control
+    caught; (b) the roofline of one S1 decode iteration; (c) the inspector
+    on llama3-8b decode_32k at one layer (B 128 over 32,768 positions) as a
+    subprocess; (d) the dry-run of llama3-405b train_4k on both meshes as a
+    subprocess, alongside (c). Returns the kernel launches of (a) and
+    (b)."""
+    from repro_torch.configs import ServingConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import audit_donation
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    cfg = get_config("llama3-8b")
+    sv = ServingConfig(num_hbm_blocks=1024, paged_runner=True, block_size=16,
+                       prefill_chunk=512)
+    rows = audit_donation.audit(cfg, sv, "cuda")
+    audit_donation.print_table(rows)
+    for r in rows:
+        log(f"audit {r.name}: peak growth {r.growth} B of a {r.pool_bytes} B "
+            f"pool ({r.growth / r.pool_bytes:.6f}), {r.verdict}")
+    bad = [r.name for r in rows if not r.ok]
+    if bad or len(rows) != 9:
+        raise AssertionError(f"audit: {len(rows)} entries, failed {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    roof = roofline_decode(torch, cfg)
+    launches = ops.launch_counts()
+    log(f"tooling path kernel launches: {launches}")
+    idle = [k for k, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"tooling: kernels never launched {idle}")
+    root = Path(__file__).resolve().parent
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama3-405b", "--shape", "train_4k", "--mesh", "both", "--force"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    try:
+        tool_run(["repro_torch.launch.inspect_hlo", "--arch", "llama3-8b",
+                  "--shape", "decode_32k", "--periods", "1"], timeout=300)
+        t0 = time.perf_counter()
+        out, _ = dry.communicate(timeout=300)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    log(f"repro_torch.launch.dryrun: rc {dry.returncode} "
+        f"({time.perf_counter() - t0:.2f} s after the inspector)")
+    if dry.returncode != 0:
+        raise AssertionError(f"dryrun exited {dry.returncode}")
+    log(f"phase 13 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches, roof
+
+
 def main(argv) -> int:
     if argv not in ([], ["--timing"]):
         log("usage: chip_smoke.py [--timing]")
@@ -1720,6 +1916,9 @@ def main(argv) -> int:
     launches["train"] = train_phase(torch)
     log(f"train path kernel launches: {launches['train']}")
 
+    # 13. the launch tooling: audit, roofline, inspector, dry-run
+    launches["tooling"], _ = tooling_phase(torch)
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -1740,7 +1939,8 @@ def main(argv) -> int:
                                 ("9_supervisor", launches["supervisor"]),
                                 ("10_dense", launches["dense"]),
                                 ("11_families", launches["families"]),
-                                ("12_train", launches["train"]))})
+                                ("12_train", launches["train"]),
+                                ("13_tooling", launches["tooling"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

@@ -18,14 +18,18 @@ any other raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 launches = 0      # kernel launches (plain-version calls are not counted)
+# the work of the calls on meta tensors (the dry-run), by this kernel's
+# formula (``flops_and_bytes``)
+meta_cost = {"calls": 0, "flops": 0.0, "bytes": 0.0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -38,14 +42,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, H, D). Query row i
     sits at kv position ``q_offset + i``; ``None`` means ``Skv - Sq`` (the
     TPU kernel's alignment). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel; meta tensors (the dry-run) give an empty
+    output and add the kernel's work to ``meta_cost``."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset,
                                    softmax_scale=softmax_scale)
+    if q.device.type == "meta":
+        B, Sq, H, D = q.shape
+        off = k.shape[1] - Sq if q_offset is None else int(q_offset)
+        flops, nbytes = flops_and_bytes(B, Sq, k.shape[1], H, k.shape[2], D,
+                                        causal=causal, window=window,
+                                        q_offset=off,
+                                        itemsize=q.element_size())
+        meta_cost["calls"] += 1
+        meta_cost["flops"] += flops
+        meta_cost["bytes"] += nbytes
+        return torch.empty_like(q)
     return flash_attention_kernel(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset,
                                   softmax_scale=softmax_scale)
+
+
+def flops_and_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, *,
+                    causal: bool, window: int, q_offset: int,
+                    itemsize: int) -> Tuple[float, float]:
+    """The least work of one call: 4 operations per visible (query, key)
+    pair, query head and head dim (Q.K^T and P.V), and q, k, v read once
+    and the output written once."""
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Skv, pos + 1) if causal else np.full(Sq, Skv)
+    lo = (np.maximum(0, pos - window + 1) if window > 0
+          else np.zeros(Sq, np.int64))
+    pairs = B * int(np.clip(hi - lo, 0, None).sum())
+    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D) * itemsize
+    return float(4 * pairs * H * D), float(nbytes)
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,

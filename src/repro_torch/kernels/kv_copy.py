@@ -24,6 +24,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import kv_copy_ref
 
 launches = 0      # kernel launches (plain-version calls are not counted)
+# the work of the calls on meta tensors (the dry-run), by this kernel's
+# formula (``flops_and_bytes``)
+meta_cost = {"calls": 0, "flops": 0.0, "bytes": 0.0}
+
+
+def flops_and_bytes(n_rows: int, row_bytes: int):
+    """The least work of a launch moving ``n_rows`` rows: each read once
+    and written once, no arithmetic."""
+    return 0.0, float(2 * n_rows * row_bytes)
 
 
 def check_descriptors(src: np.ndarray, dst: np.ndarray, rows: int) -> None:
@@ -47,12 +56,20 @@ def check_descriptors(src: np.ndarray, dst: np.ndarray, rows: int) -> None:
 def kv_copy(pool: torch.Tensor, src, dst) -> torch.Tensor:
     """pool: (rows, ...) of any dtype, contiguous; src/dst: (N,) int32 host
     arrays. Copies in place and returns ``pool``. A CPU pool takes the plain
-    version; a CUDA pool launches the kernel."""
+    version; a CUDA pool launches the kernel; a meta pool (the dry-run)
+    adds the kernel's work for the valid descriptors to ``meta_cost``."""
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
     check_descriptors(src, dst, pool.shape[0])
     if pool.device.type == "cpu":
         return kv_copy_ref(pool, src, dst)
+    if pool.device.type == "meta":
+        flops, nbytes = flops_and_bytes(int((src >= 0).sum()),
+                                        pool[0].numel() * pool.element_size())
+        meta_cost["calls"] += 1
+        meta_cost["flops"] += flops
+        meta_cost["bytes"] += nbytes
+        return pool
     return kv_copy_kernel(pool, src, dst)
 
 

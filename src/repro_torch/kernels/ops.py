@@ -3,6 +3,9 @@ version for CPU tensors (the twin of ``src/repro/kernels/ops.py``).
 
 ``force`` overrides: "kernel" (raises for a CPU tensor: a CUDA kernel has
 no CPU mode), "ref" (the plain version on any device), None (by device).
+``launch_counts`` reads the wrappers' launch counters; ``meta_costs``
+reads the work their meta-tensor branches add up by each kernel's
+``flops_and_bytes`` (the dry-run's kernel FLOPs).
 """
 from __future__ import annotations
 
@@ -68,3 +71,21 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+_META = {"flash_attention": _flash, "kv_copy": _copy,
+         "paged_attention": _paged}
+
+
+def meta_costs() -> Dict[str, Dict[str, float]]:
+    """The kernels' work on meta tensors so far (calls, FLOPs and bytes by
+    each kernel's ``flops_and_bytes``), by kernel and in ``"total"``."""
+    out = {name: dict(mod.meta_cost) for name, mod in _META.items()}
+    out["total"] = {k: sum(c[k] for c in out.values())
+                    for k in ("calls", "flops", "bytes")}
+    return out
+
+
+def reset_meta_costs() -> None:
+    for mod in _META.values():
+        mod.meta_cost.update(calls=0, flops=0.0, bytes=0.0)

@@ -18,7 +18,7 @@ stays int8 in shared memory too.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +28,9 @@ from repro_torch.kernels.ref import cluster_size, paged_attention_ref
 launches = 0        # bf16/fp32-mode kernel launches
 launches_int8 = 0   # int8-mode kernel launches (plain-version calls are
 #                     counted by neither)
+# the work of the calls on meta tensors (the dry-run), by this kernel's
+# formula (``flops_and_bytes``)
+meta_cost = {"calls": 0, "flops": 0.0, "bytes": 0.0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -41,12 +44,40 @@ def paged_attention(q: torch.Tensor, kv_pool: torch.Tensor,
     with ``layer >= 0``; block_tables: (B, MB) int32; context_lens: (B,)
     int32, each >= 1 -> (B, H, D). ``kv_scales`` (fp32, the pool's shape
     without P and D) marks an int8 pool. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel; meta tensors (the dry-run)
+    give an empty output and add the kernel's work to ``meta_cost``, with
+    every sequence at its block table's whole capacity (a meta tensor
+    holds no lengths)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kv_pool, block_tables, context_lens,
                                    layer=layer, kv_scales=kv_scales)
+    if q.device.type == "meta":
+        B, H, D = q.shape
+        MB = block_tables.shape[1]
+        P, Hkv = kv_pool.shape[-3], kv_pool.shape[-2]
+        flops, nbytes = flops_and_bytes(
+            B, H, Hkv, D, MB, B * MB * P, itemsize=q.element_size(),
+            kv_itemsize=kv_pool.element_size(), quant=kv_scales is not None)
+        meta_cost["calls"] += 1
+        meta_cost["flops"] += flops
+        meta_cost["bytes"] += nbytes
+        return torch.empty_like(q)
     return paged_attention_kernel(q, kv_pool, block_tables, context_lens,
                                   layer=layer, kv_scales=kv_scales)
+
+
+def flops_and_bytes(B: int, H: int, Hkv: int, D: int, MB: int,
+                    context_total: int, *, itemsize: int, kv_itemsize: int,
+                    quant: bool) -> Tuple[float, float]:
+    """The least work of one call over ``context_total`` context tokens in
+    all: 4 operations per token, query head and head dim (q.K^T and P.V);
+    q read and the output written once, the block tables and lengths, each
+    context token's K and V once, and in the int8 mode the fp32 scales of
+    every table entry."""
+    nbytes = (2 * B * H * D * itemsize + B * MB * 4 + B * 4
+              + context_total * Hkv * D * 2 * kv_itemsize
+              + (B * MB * 2 * Hkv * 4 if quant else 0))
+    return float(4 * context_total * H * D), float(nbytes)
 
 
 def paged_attention_kernel(q: torch.Tensor, kv_pool: torch.Tensor,

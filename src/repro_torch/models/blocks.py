@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import apply_rope, rms_norm, swiglu
+from repro_torch.models.common import (ArraySpec, apply_rope, rms_norm,
+                                      swiglu)
 from repro_torch.models.moe import moe_ffn
 
 
@@ -64,6 +65,40 @@ def window_cache_size(cfg: ModelConfig, spec: LayerSpec, capacity: int) -> int:
         return 0
     w = cfg.attn.sliding_window
     return w if 0 < w <= capacity else 0
+
+
+def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                      capacity: int, src_len: int = 0,
+                      dtype: str = "bfloat16") -> Dict[str, ArraySpec]:
+    """One layer's decode cache as ``apply_layer_seq`` lays it out for
+    ``capacity`` tokens, with the reference's logical axes
+    (``src/repro/models/blocks.py::layer_cache_specs``)."""
+    out: Dict[str, ArraySpec] = {}
+    if spec.mixer == "attn":
+        w = window_cache_size(cfg, spec, capacity)
+        kv = (batch, w if w else capacity, cfg.num_kv_heads, cfg.head_dim)
+        axes = ("batch", "kv_seq", "kv_heads", None)
+        out["k"] = ArraySpec(kv, dtype, axes)
+        out["v"] = ArraySpec(kv, dtype, axes)
+    else:
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        H = d_in // s.head_dim
+        W = s.conv_width
+        out["conv_x"] = ArraySpec((batch, W - 1, d_in), dtype,
+                                  ("batch", None, "mlp"))
+        out["conv_b"] = ArraySpec((batch, W - 1, s.state_dim), dtype,
+                                  ("batch", None, None))
+        out["conv_c"] = ArraySpec((batch, W - 1, s.state_dim), dtype,
+                                  ("batch", None, None))
+        out["h"] = ArraySpec((batch, H, s.head_dim, s.state_dim), dtype,
+                             ("batch", "ssm_heads", None, None))
+    if spec.has_cross:
+        ckv = (batch, src_len, cfg.num_kv_heads, cfg.head_dim)
+        axes = ("batch", "kv_seq", "kv_heads", None)
+        out["ck"] = ArraySpec(ckv, dtype, axes)
+        out["cv"] = ArraySpec(ckv, dtype, axes)
+    return out
 
 
 def _left_fit(x: torch.Tensor, cap: int) -> torch.Tensor:

@@ -1,15 +1,22 @@
-"""Shared numerics of the dense decoder: RMSNorm, RoPE, SwiGLU.
+"""Shared numerics of the dense decoder: RMSNorm, RoPE, SwiGLU; and
+``ArraySpec``, a tensor's shape, dtype and logical axes.
 
-Twins of ``src/repro/models/common.py:74-109`` that keep its cast points
-(fp32 norm and rotation, silu in fp32 then the working dtype), which decide
-where bf16 rounds.
+The numerics are twins of ``src/repro/models/common.py:74-109`` that keep
+its cast points (fp32 norm and rotation, silu in fp32 then the working
+dtype), which decide where bf16 rounds. ``ArraySpec`` and its tree helpers
+are the reference's (``:113-140``) for caches and step inputs.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.optimizer.adamw import TensorSpec
+from repro_torch.tree import tree_map
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -57,3 +64,27 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArraySpec:
+    """Shape, dtype name and logical axes of a cache tensor or step input."""
+    shape: Tuple[int, ...]
+    dtype: str            # "int32" | "float32" | "bfloat16" | "float16"
+    logical_axes: Tuple[Optional[str], ...]
+
+    def struct(self) -> TensorSpec:
+        return TensorSpec(self.shape, getattr(torch, self.dtype))
+
+
+def is_array_spec(x) -> bool:
+    return isinstance(x, ArraySpec)
+
+
+def specs_to_structs(tree):
+    return tree_map(lambda s: s.struct(), tree, is_leaf=is_array_spec)
+
+
+def specs_logical_axes(tree):
+    return tree_map(lambda s: (s.logical_axes, s.shape), tree,
+                    is_leaf=is_array_spec)

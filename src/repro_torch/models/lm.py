@@ -14,9 +14,12 @@ reads; a decoder with a frontend puts its projected embeddings before the
 tokens. ``train_loss`` is the training objective; with ``remat`` it runs
 the decoder's layers in groups of ``remat_group`` under
 ``torch.utils.checkpoint``, the counterpart of the reference's
-``jax.checkpoint`` and grouped remat. The reference's ``scan_unroll``
-serves its dry-run only and waits for the tooling (ROADMAP.md §1 item
-10c).
+``jax.checkpoint`` and grouped remat. ``param_structs``, ``param_axes``
+and ``cache_specs`` describe the weights and caches, with their logical
+axes, without allocating them (the dry-run's input). The reference's
+``scan_unroll`` served its dry-run's cost extrapolation over ``lax.scan``;
+a Python loop over layers hides none from the FLOP counter, so it has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LayerSpec, make_layer_spec
-from repro_torch.models.common import dtype_of, rms_norm
+from repro_torch.models.common import ArraySpec, dtype_of, rms_norm
+from repro_torch.models.params import param_axes, param_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +107,25 @@ class LM:
                             if cfg.num_encoder_layers else [])
         self.specs = _layer_specs(self.program)
         self.enc_specs = _layer_specs(self.enc_program)
+
+    # -- specs -----------------------------------------------------------
+
+    def param_structs(self):
+        """The weight tree with ``TensorSpec`` leaves (nothing allocated)."""
+        return param_specs(self.cfg)
+
+    def param_axes(self):
+        """The weight tree with ``(logical axes, shape)`` leaves."""
+        return param_axes(self.cfg)
+
+    def cache_specs(self, batch: int, capacity: int, src_len: int = 0
+                    ) -> List[Dict[str, ArraySpec]]:
+        """One ``ArraySpec`` dict per decoder layer: the caches ``prefill``
+        returns for ``capacity`` tokens (``src_len`` encoder frames for
+        cross-attention), with their logical axes."""
+        return [blocks.layer_cache_specs(self.cfg, spec, batch, capacity,
+                                         src_len, self.cfg.dtype)
+                for spec in self.specs]
 
     def _logits(self, params, h: torch.Tensor) -> torch.Tensor:
         head = params["head"]

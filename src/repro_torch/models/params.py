@@ -14,7 +14,8 @@ SSM: the projections, conv taps and ``A_log``/``D``/``dt_bias`` of
 for a frontend and ``enc_norm`` for an encoder. These are the shapes,
 names and init rules of the reference's ``layer_param_defs``
 (``src/repro/models/blocks.py:46-106``) and ``LM.param_defs``
-(``lm.py:84-101``), in the same order.
+(``lm.py:84-101``), in the same order, with the logical axes of its
+``ParamDef``s (``param_axes``), which the dry-run lays over a mesh.
 """
 from __future__ import annotations
 
@@ -31,62 +32,78 @@ from repro_torch.optimizer.adamw import TensorSpec
 
 def _attn_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, tuple]:
     d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {prefix + "wq": ((d, H, D), "normal"),
-            prefix + "wk": ((d, Hkv, D), "normal"),
-            prefix + "wv": ((d, Hkv, D), "normal"),
-            prefix + "wo": ((H, D, d), "normal")}
+    return {prefix + "wq": ((d, H, D), "normal", ("fsdp", "heads", None)),
+            prefix + "wk": ((d, Hkv, D), "normal",
+                            ("fsdp", "kv_heads", None)),
+            prefix + "wv": ((d, Hkv, D), "normal",
+                            ("fsdp", "kv_heads", None)),
+            prefix + "wo": ((H, D, d), "normal", ("heads", None, "fsdp"))}
 
 
 def _ssm_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     d, s = cfg.d_model, cfg.ssm
     d_in = s.expand * d
     H, N, W = d_in // s.head_dim, s.state_dim, s.conv_width
-    return {"w_z": ((d, d_in), "normal"), "w_x": ((d, d_in), "normal"),
-            "w_b": ((d, N), "normal"), "w_c": ((d, N), "normal"),
-            "w_dt": ((d, H), "normal"), "dt_bias": ((H,), "ssm_dt"),
-            "A_log": ((H,), "ssm_a"), "D": ((H,), "ones"),
-            "conv_x": ((W, d_in), "normal"), "conv_b": ((W, N), "normal"),
-            "conv_c": ((W, N), "normal"), "norm_y": ((d_in,), "zeros"),
-            "out_proj": ((d_in, d), "normal")}
+    return {"w_z": ((d, d_in), "normal", ("fsdp", "mlp")),
+            "w_x": ((d, d_in), "normal", ("fsdp", "mlp")),
+            "w_b": ((d, N), "normal", ("fsdp", None)),
+            "w_c": ((d, N), "normal", ("fsdp", None)),
+            "w_dt": ((d, H), "normal", ("fsdp", "ssm_heads")),
+            "dt_bias": ((H,), "ssm_dt", ("ssm_heads",)),
+            "A_log": ((H,), "ssm_a", ("ssm_heads",)),
+            "D": ((H,), "ones", ("ssm_heads",)),
+            "conv_x": ((W, d_in), "normal", (None, "mlp")),
+            "conv_b": ((W, N), "normal", (None, None)),
+            "conv_c": ((W, N), "normal", (None, None)),
+            "norm_y": ((d_in,), "zeros", ("mlp",)),
+            "out_proj": ((d_in, d), "normal", ("mlp", "fsdp"))}
 
 
 def layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, object]:
-    """One layer's weights: name -> (shape, init), the MoE weights nested
-    under ``moe``. Init is "normal" (scaled by 1/sqrt(shape[0]), the
-    reference's fan-in axis, experts included), "zeros" (the norms, which
-    scale by 1 + w), "ones", "ssm_a" or "ssm_dt"."""
+    """One layer's weights: name -> (shape, init, logical axes), the MoE
+    weights nested under ``moe``. Init is "normal" (scaled by
+    1/sqrt(shape[0]), the reference's fan-in axis, experts included),
+    "zeros" (the norms, which scale by 1 + w), "ones", "ssm_a" or
+    "ssm_dt". The logical axes are the reference's ``ParamDef``s'
+    (``distributed/sharding.py`` maps them to mesh axes)."""
     d = cfg.d_model
-    out: Dict[str, object] = {"ln1": ((d,), "zeros")}
+    norm = ((d,), "zeros", (None,))
+    out: Dict[str, object] = {"ln1": norm}
     out.update(_attn_shapes(cfg) if spec.mixer == "attn" else _ssm_shapes(cfg))
     if spec.has_cross:
-        out["ln_cross"] = ((d,), "zeros")
+        out["ln_cross"] = norm
         out.update(_attn_shapes(cfg, "c"))
     if spec.ffn != "none":
-        out["ln2"] = ((d,), "zeros")
+        out["ln2"] = norm
     if spec.ffn == "dense":
         f = cfg.d_ff
-        out.update(w_gate=((d, f), "normal"), w_up=((d, f), "normal"),
-                   w_down=((f, d), "normal"))
+        out.update(w_gate=((d, f), "normal", ("fsdp", "mlp")),
+                   w_up=((d, f), "normal", ("fsdp", "mlp")),
+                   w_down=((f, d), "normal", ("mlp", "fsdp")))
     elif spec.ffn == "moe":
         m = cfg.moe
         E, f = m.num_experts, m.expert_d_ff or cfg.d_ff
-        out["moe"] = {"router": ((d, E), "normal"),
-                      "w_gate": ((E, d, f), "normal"),
-                      "w_up": ((E, d, f), "normal"),
-                      "w_down": ((E, f, d), "normal")}
+        out["moe"] = {"router": ((d, E), "normal", ("fsdp", None)),
+                      "w_gate": ((E, d, f), "normal",
+                                 ("experts", "fsdp", None)),
+                      "w_up": ((E, d, f), "normal",
+                               ("experts", "fsdp", None)),
+                      "w_down": ((E, f, d), "normal",
+                                 ("experts", None, "fsdp"))}
     return out
 
 
 def head_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     d = cfg.d_model
-    out = {"embed": ((cfg.vocab_size, d), "normal"),
-           "final_norm": ((d,), "zeros")}
+    out = {"embed": ((cfg.vocab_size, d), "normal", ("vocab", "fsdp")),
+           "final_norm": ((d,), "zeros", (None,))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = ((d, cfg.vocab_size), "normal")
+        out["lm_head"] = ((d, cfg.vocab_size), "normal", ("fsdp", "vocab"))
     if cfg.frontend.kind != "none":
-        out["frontend_proj"] = ((cfg.frontend.embed_dim, d), "normal")
+        out["frontend_proj"] = ((cfg.frontend.embed_dim, d), "normal",
+                                (None, "fsdp"))
     if cfg.num_encoder_layers:
-        out["enc_norm"] = ((d,), "zeros")
+        out["enc_norm"] = ((d,), "zeros", (None,))
     return out
 
 
@@ -104,7 +121,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     one fp32 temporary lives at a time. The draws are torch's, not the JAX
     package's: to compare with the reference, bridge its weights with
     ``from_jax_lm_params``."""
-    def draw(shape, init):
+    def draw(shape, init, _axes):
         if init in ("zeros", "ones"):
             fill = torch.zeros if init == "zeros" else torch.ones
             return fill(shape, dtype=dtype, device=device)
@@ -124,8 +141,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _map_shapes(cfg: ModelConfig, fn) -> Dict[str, object]:
-    """The weight tree with ``fn(shape, init)`` at each leaf, built layer
-    by layer in execution order, then the head, then the encoder."""
+    """The weight tree with ``fn(shape, init, axes)`` at each leaf, built
+    layer by layer in execution order, then the head, then the encoder."""
     def tree(shapes):
         return {k: tree(v) if isinstance(v, dict) else fn(*v)
                 for k, v in shapes.items()}
@@ -143,7 +160,17 @@ def param_specs(cfg: ModelConfig) -> Dict[str, object]:
     """The weight tree of ``init_lm_params`` with ``TensorSpec(shape,
     dtype)`` leaves, allocating nothing."""
     dt = dtype_of(cfg.dtype)
-    return _map_shapes(cfg, lambda shape, _: TensorSpec(tuple(shape), dt))
+    return _map_shapes(cfg, lambda shape, _i, _a: TensorSpec(tuple(shape),
+                                                             dt))
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, object]:
+    """The weight tree of ``param_specs`` with ``(logical axes, shape)``
+    leaves, the reference's ``param_logical_axes`` leaf for leaf (its
+    segments stack each leaf under a leading None axis; here every layer
+    holds its own)."""
+    return _map_shapes(cfg, lambda shape, _, axes: (tuple(axes),
+                                                    tuple(shape)))
 
 
 def params_to(tree, device):

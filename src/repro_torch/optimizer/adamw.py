@@ -15,8 +15,9 @@ The port of ``src/repro/optimizer/adamw.py`` over the port's weight tree
     step's scalars (clip, warmup, bias corrections) are fp32 tensors, as the
     reference's are.
 
-The reference's ``state_logical_axes`` (sharding) waits for tensor
-parallelism (ROADMAP.md §1 item 3).
+``state_logical_axes`` gives the state's logical axes, which the dry-run
+lays over a mesh: the moments inherit their parameters' (sharded execution
+waits for tensor parallelism, ROADMAP.md §1 item 3).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_axes_leaf
 from repro_torch.tree import tree_leaves, tree_map
 
 BLOCK = 256
@@ -142,6 +144,25 @@ def state_structs(param_specs, cfg: AdamWConfig) -> AdamWState:
     return AdamWState(step=TensorSpec((), torch.int32),
                       m=tree_map(one, param_specs),
                       v=tree_map(one, param_specs))
+
+
+def state_logical_axes(param_axes, cfg: AdamWConfig) -> AdamWState:
+    """``(logical axes, shape)`` tree matching ``state_structs`` for a tree
+    of parameter ``(logical axes, shape)`` leaves: shape-preserving int8
+    moments inherit the parameter axes (their scales drop the last
+    axis)."""
+    def one(ax_shape):
+        axes, shape = ax_shape
+        if cfg.moments_dtype == "int8":
+            shp = shape if shape else (1,)
+            ax = axes if shape else (None,)
+            L = shp[-1]
+            return Quantized((ax, shp), (ax[:-1] + (None,),
+                                         shp[:-1] + (L // _block_of(L),)))
+        return (axes, shape)
+    return AdamWState(step=((), ()),
+                      m=tree_map(one, param_axes, is_leaf=is_axes_leaf),
+                      v=tree_map(one, param_axes, is_leaf=is_axes_leaf))
 
 
 def _global_norm(grads) -> torch.Tensor:

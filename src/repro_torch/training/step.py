@@ -88,3 +88,10 @@ def train_state_structs(lm: LM, opt_cfg: adamw.AdamWConfig) -> TrainState:
     """``TensorSpec`` tree matching ``init_train_state``."""
     ps = param_specs(lm.cfg)
     return TrainState(ps, adamw.state_structs(ps, opt_cfg))
+
+
+def train_state_logical_axes(lm: LM, opt_cfg: adamw.AdamWConfig
+                             ) -> TrainState:
+    """``(logical axes, shape)`` tree matching ``train_state_structs``."""
+    ax = lm.param_axes()
+    return TrainState(ax, adamw.state_logical_axes(ax, opt_cfg))

@@ -43,10 +43,11 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_new_modules_are_covered_and_import_no_jax():
     """The modules of the int8 tier, the serving CLI, the HTTP front door,
-    the dense executor and its LM (MoE, SSM, inputs included) and the
-    training stack (data, optimizer, train step, checkpoints, launcher) are
-    among
-    the files checked above, and importing
+    the dense executor and its LM (MoE, SSM, inputs included), the
+    training stack (data, optimizer, train step, checkpoints, launcher) and
+    the launch tooling (sharding rules, meshes, roofline, dry-run,
+    inspector, in-place audit) are among the files checked above, and
+    importing
     all of them loads neither JAX nor the reference package (checked in a
     fresh interpreter)."""
     import os
@@ -63,7 +64,11 @@ def test_new_modules_are_covered_and_import_no_jax():
             "repro_torch.models.api", "repro_torch.serving.executor",
             "repro_torch.data.pipeline", "repro_torch.optimizer.adamw",
             "repro_torch.training.step", "repro_torch.checkpoint.ckpt",
-            "repro_torch.launch.train", "repro_torch.tree"]
+            "repro_torch.launch.train", "repro_torch.tree",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.launch.inspect_hlo",
+            "repro_torch.launch.audit_donation"]
     covered = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES
                if ROOT / "src" in p.parents}
     for m in mods:
