@@ -19,7 +19,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with Sq != Skv), seamless-m4t's non-causal encoder and cross-attention;
    paged: B=8 with empty splits), each within a stated tolerance; the
    paged kernel's output for one sequence bitwise equal alone and in a
-   batch; ``quant_store_tokens`` on the card against the CPU;
+   batch; ``quant_store_tokens`` on the card against the CPU; paged
+   attention (both modes) and flash at a tensor-parallel shard's heads,
+   llama3-8b's tp=2 (16/4/128) and tp=8 (4/1/128);
 4. timing: each kernel at main-path shapes (CUDA events, median after
    warm-up) beside its bound, its plain version and a library yardstick;
    paged attention also at the main path's decode batch (B=8, ctx 1024,
@@ -80,16 +82,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1e-5 relative, gradients within atol 1e-5, rtol 1e-4);
 13. tooling (target 90 s): ``repro_torch.launch.audit_donation.audit`` at
    llama3-8b's full width with bf16 weights and S1 (a)'s pool (1,024 HBM
-   blocks, block 16, chunk 512), bf16 and int8 KV: every launch entry
-   (row copy, upload, decode, prefill) keeps its buffers and writes them,
-   with its peak memory growth below the pool's bytes, and the
-   out-of-place control is caught; the roofline of one S1 decode
+   blocks, block 16, chunk 512), bf16 and int8 KV, at tp=1 and at tp=2
+   (two shards stacked on the card): every launch entry (row copy,
+   upload, decode, prefill) keeps its buffers (each shard's) and writes
+   them, with its peak memory growth below one (shard's) pool's bytes, and
+   the out-of-place control is caught; the roofline of one S1 decode
    iteration (B=8, contexts about 1,024, bf16: ``launch/roofline.py``'s
    terms against the traced device ms and the wall ms); then as
    subprocesses ``python -m repro_torch.launch.inspect_hlo --arch
    llama3-8b --shape decode_32k --periods 1`` and, alongside it, ``python
    -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k --mesh
-   both``, each of which must exit 0.
+   both``, each of which must exit 0;
+14. tensor parallelism (target 90 s): (a) llama3-8b at full width in
+   bf16 at tp=2 with both shards on the card (``device=["cuda:0",
+   "cuda:0"]``), phase 5's prompts and weights, 1024 and 119 HBM blocks,
+   bf16 and int8 KV: run (b) rotates, a shard holds and moves half the
+   bytes, each shard's paged launch is counted (twice the runner's layer
+   launches), all three kernels launch, and no request's first divergence
+   from phase 5's streams has both top-2 margins above
+   ``DIVERGENCE_TIE`` (the partials add in bf16); run (a) traced: wall,
+   busy share, peak memory. Stacked shards do the same work with twice
+   the launches: no number here is a TP speed-up. (b) the reduced
+   llama3-8b in fp32 (8/4/16) at tp 1, 2 and 4 under rotation, the
+   replicated-attention fallback (2 kv heads) at tp 4 and the int8 tier
+   at tp 2: streams equal tp=1's on the card and the CPU's; the int8
+   shards' scales against tp=1's. (c) (b) over two cards, only where the
+   machine has them.
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -328,6 +346,58 @@ def kernel_checks(torch, ops, ref, cfg, errs, dev="cuda"):
 
 
 EMPTY_SPLIT_CTX = [1, 40, 128, 129, 300, 1024, 700, 5]
+
+
+def tp_shard_checks(torch, ops, ref, cfg, errs, dev="cuda"):
+    """The kernels at one tensor-parallel shard's heads (phase 14): paged
+    attention in both modes and flash against their plain versions at
+    llama3-8b's tp=2 shard (16/4/128) and tp=8 shard (4/1/128), over a
+    full-depth pool of that shard's heads."""
+    L, D, P, NB, staging = cfg.num_layers, cfg.head_dim, 16, 1024, 64
+    rows = NB + staging + 1
+    trash = rows - 1
+    B, MB = 32, 64
+    for tp in (2, 8):
+        sc = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                                 num_kv_heads=cfg.num_kv_heads // tp)
+        H, Hkv = sc.num_heads, sc.num_kv_heads
+        g = torch.Generator(device=dev).manual_seed(10 + tp)
+        bt = torch.randint(0, NB, (B, MB), generator=g, device=dev,
+                           dtype=torch.int32)
+        cl = torch.randint(1, MB * P + 1, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+        bt[-4:] = trash
+        cl[-4:] = 1
+        qpool, scales = int8_pool(torch, g, (rows, L), sc, P, dev)
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            tol = TOL[dname]
+            what = f"tp={tp} shard H/Hkv/D={H}/{Hkv}/{D}"
+            pool = torch.randn((rows, L, 2, P, Hkv, D), generator=g,
+                               device=dev).to(dt)
+            q = torch.randn((B, H, D), generator=g, device=dev).to(dt)
+            for name, kv, kvs in (("paged_attention", pool, None),
+                                  ("paged_attention_int8", qpool, scales)):
+                got = ops.paged_attention(q, kv, bt, cl, layer=L - 1,
+                                          kv_scales=kvs, force="kernel")
+                want = ref.paged_attention_ref(q, kv, bt, cl, layer=L - 1,
+                                               kv_scales=kvs)
+                torch.cuda.synchronize()
+                check(name, dname, f"{what}, B={B} ragged ctx, 4 padded "
+                      f"lanes, layer {L - 1}", got, want, tol, errs)
+            del pool
+            q = torch.randn((1, 512, H, D), generator=g, device=dev).to(dt)
+            k = torch.randn((1, 1024, Hkv, D), generator=g, device=dev).to(dt)
+            v = torch.randn((1, 1024, Hkv, D), generator=g, device=dev).to(dt)
+            got = ops.flash_attention(q, k, v, causal=True, q_offset=512,
+                                      force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           q_offset=512)
+            torch.cuda.synchronize()
+            check("flash_attention", dname, f"{what}, T=512 Skv=1024 "
+                  f"q_offset=512", got, want, tol, errs)
+        del qpool, scales
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def batch_invariance(torch, ops, q, pool, bt, cl, layer, scales, dname):
@@ -691,24 +761,39 @@ def device_time_by_family(prof):
     return out
 
 
-def serve(torch, cfg, sv, prompts, device, seed=0, trace=False):
+def serve(torch, cfg, sv, prompts, device, seed=0, trace=False,
+          params=None, keep_store=False):
     """Serve ``prompts`` [(ids, max_tokens)] to completion through the
     port's ServingEngine with the paged runner; return streams, margins,
-    wall seconds, counters, bytes moved each way and the kernel launches of
-    this run. ``trace`` records the drain with torch.profiler and adds
-    device milliseconds by kernel family."""
+    wall seconds, counters, bytes moved each way (and per kv shard), the
+    pool's bytes, the peak device memory from before the engine is built
+    (weights the caller holds included) and the kernel launches of this
+    run. ``trace`` records the drain with torch.profiler and adds device
+    milliseconds by kernel family. ``params`` are the runner's weights
+    (else drawn from ``seed``); ``device`` may be a list, one a TP
+    shard; ``keep_store`` returns the store too."""
     from repro_torch.configs import GH200
     from repro_torch.core.types import RequestState, SamplingParams
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_runner import PagedModelRunner
     before = ops.launch_counts()
-    eng = ServingEngine(cfg, sv, GH200, runner_seed=seed, device=device)
+    on_card = any(str(d).startswith("cuda") for d in (
+        device if isinstance(device, list) else [device]))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    if params is None:
+        eng = ServingEngine(cfg, sv, GH200, runner_seed=seed, device=device)
+    else:
+        eng = ServingEngine(cfg, sv, GH200, executor=PagedModelRunner(
+            cfg, sv, GH200, timing_cfg=cfg, params=params, device=device))
     ex = eng.executor
     ex.record_margins = True
     handles = [eng.add_request(prompt_ids=ids,
                                sampling_params=SamplingParams(max_tokens=n))
                for ids, n in prompts]
-    if device == "cuda":
+    if on_card:
         torch.cuda.synchronize()
     prof = None
     if trace:
@@ -718,7 +803,7 @@ def serve(torch, cfg, sv, prompts, device, seed=0, trace=False):
         prof.start()
     t0 = time.perf_counter()
     eng.drain()
-    if device == "cuda":
+    if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if prof is not None:
@@ -734,9 +819,9 @@ def serve(torch, cfg, sv, prompts, device, seed=0, trace=False):
     if not all(np.isfinite(m).all() for m in margins.values()):
         raise AssertionError("non-finite logits (top-2 margin)")
     st = ex.store
-    row_bytes = st.pool[0].numel() * st.pool.element_size()
-    if st.quantized:
-        row_bytes += st.scales[0].numel() * st.scales.element_size()
+    row_bytes = (int(np.prod(st.row_shape)) * st.pool.element_size()
+                 + (int(np.prod(st.scale_row_shape))
+                    * st.scales.element_size() if st.quantized else 0))
     res = dict(
         streams={h.req_id: list(h.request.generated_ids) for h in handles},
         margins=margins, wall_s=wall,
@@ -748,14 +833,20 @@ def serve(torch, cfg, sv, prompts, device, seed=0, trace=False):
         decode_batches=ex.decode_batches, attn_launches=ex.attn_launches,
         prefill_chunks=ex.prefill_chunks_run, row_bytes=row_bytes,
         launches={k: v - before[k] for k, v in ops.launch_counts().items()},
+        transfer=eng.kv.transfer_counters(),
+        pool_shard_bytes=st.pool_shard_bytes,
+        pool_global_bytes=st.pool_global_bytes,
+        peak_bytes=torch.cuda.max_memory_allocated() if on_card else None,
         **{c: getattr(st, c) for c in ROW_MOVES})
     if prof is not None:
         res["device_ms"] = device_time_by_family(prof)
+    if keep_store:
+        res["store"] = st
     if res["attn_launches"] != res["decode_batches"] * cfg.num_layers:
         raise AssertionError("attn_launches != decode_batches x layers")
     del eng, ex, st, handles
     gc.collect()
-    if device == "cuda":
+    if on_card:
         torch.cuda.empty_cache()
     return res
 
@@ -775,9 +866,11 @@ def agreement(a, b):
     return same / max(total, 1), first
 
 
-def serving_runs(torch, cfg, prompts, sv_kw, hbm_ample, device, label):
+def serving_runs(torch, cfg, prompts, sv_kw, hbm_ample, device, label,
+                 params=None, trace=()):
     """Runs (a) ample and (b) tight HBM; (b) holds the two largest
-    requests."""
+    requests. ``params`` are the weights (else drawn from seed 0); the
+    runs named in ``trace`` are traced."""
     from repro_torch.configs import ServingConfig
     P = sv_kw["block_size"]
     need = sorted((-(-(len(ids) + n) // P) for ids, n in prompts),
@@ -786,7 +879,8 @@ def serving_runs(torch, cfg, prompts, sv_kw, hbm_ample, device, label):
     out = {}
     for run, hbm in (("a", hbm_ample), ("b", hbm_tight)):
         sv = ServingConfig(num_hbm_blocks=hbm, paged_runner=True, **sv_kw)
-        res = serve(torch, cfg, sv, prompts, device)
+        res = serve(torch, cfg, sv, prompts, device, params=params,
+                    trace=run in trace)
         rb = res["row_bytes"]
         log(f"{label} run ({run}) hbm={hbm} blocks: wall {res['wall_s']:.3f} "
             f"s, {res['tokens']} tokens, "
@@ -800,7 +894,8 @@ def serving_runs(torch, cfg, prompts, sv_kw, hbm_ample, device, label):
             f"{res['prefill_wall_s']:.3f} s, decode dispatch "
             f"{res['decode_wall_s']:.3f} s, decode batches "
             f"{res['decode_batches']}, prefill chunks "
-            f"{res['prefill_chunks']}, kernel launches {res['launches']}")
+            f"{res['prefill_chunks']}, kernel launches {res['launches']}, "
+            f"peak memory {res['peak_bytes']} B")
         out[run] = res
     b = out["b"]
     if not (b["rotations"] > 0 and b["d2h_rows"] > 0 and b["h2d_rows"] > 0
@@ -1721,9 +1816,10 @@ def tool_run(args, timeout):
 def tooling_phase(torch):
     """The launch tooling on the card: (a) the in-place audit at llama3-8b's
     full width in bf16 weights with S1 (a)'s pool (1,024 HBM blocks, block
-    16, chunk 512), bf16 and int8 KV, every launch entry in place with its
-    peak memory growth below the pool's bytes, the out-of-place control
-    caught; (b) the roofline of one S1 decode iteration; (c) the inspector
+    16, chunk 512), bf16 and int8 KV, at tp=1 and at tp=2 over two shards
+    stacked on the card, every launch entry in place (each shard's pool and
+    scales) with its peak memory growth below one (shard's) pool's bytes,
+    the out-of-place control caught; (b) the roofline of one S1 decode iteration; (c) the inspector
     on llama3-8b decode_32k at one layer (B 128 over 32,768 positions) as a
     subprocess; (d) the dry-run of llama3-405b train_4k on both meshes as a
     subprocess, alongside (c). Returns the kernel launches of (a) and
@@ -1738,13 +1834,13 @@ def tooling_phase(torch):
     cfg = get_config("llama3-8b")
     sv = ServingConfig(num_hbm_blocks=1024, paged_runner=True, block_size=16,
                        prefill_chunk=512)
-    rows = audit_donation.audit(cfg, sv, "cuda")
+    rows = audit_donation.audit(cfg, sv, "cuda", tp2=["cuda:0", "cuda:0"])
     audit_donation.print_table(rows)
     for r in rows:
         log(f"audit {r.name}: peak growth {r.growth} B of a {r.pool_bytes} B "
             f"pool ({r.growth / r.pool_bytes:.6f}), {r.verdict}")
     bad = [r.name for r in rows if not r.ok]
-    if bad or len(rows) != 9:
+    if bad or len(rows) != 17:
         raise AssertionError(f"audit: {len(rows)} entries, failed {bad}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1777,6 +1873,221 @@ def tooling_phase(torch):
         raise AssertionError(f"dryrun exited {dry.returncode}")
     log(f"phase 13 wall: {time.perf_counter() - t_phase:.2f} s")
     return launches, roof
+
+
+# --------------------------------------------------------------- phase 14
+
+# the tensor-parallel tests' BASE: reduced llama3-8b with heads wide enough
+# for tp=4 to shard whole kv-head groups
+TP_BASE_HEADS = dict(num_heads=8, num_kv_heads=4, head_dim=16)
+
+
+def first_divergences(a, b):
+    """Per request, its first differing step with both runs' top-2 margins
+    there (past it the two runs decode different contexts)."""
+    out = []
+    for rid in sorted(a["streams"]):
+        for i, (s, t) in enumerate(zip(a["streams"][rid],
+                                       b["streams"][rid])):
+            if s != t:
+                out.append((rid, i, a["margins"][rid][i],
+                            b["margins"][rid][i]))
+                break
+    return out
+
+
+def tp_full_width(torch, cfg, prompts, full, mesh=("cuda:0", "cuda:0")):
+    """Phase 14 (a): llama3-8b at full width in bf16 at tp=2 over ``mesh``
+    (both shards stacked on the card), with phase 5's prompts and weights
+    (seed 0), at S1's 1024 and 119 HBM blocks, bf16 and int8 KV."""
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.params import init_params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, torch.device("cuda"), dtype_of(cfg.dtype))
+    mesh = list(mesh)
+    paged = {"bf16": "paged_attention", "int8": "paged_attention_int8"}
+    for kvd in ("bf16", "int8"):
+        res = serving_runs(torch, cfg, prompts,
+                           dict(block_size=16, prefill_chunk=512,
+                                kv_dtype=kvd, tp=2), 1024, mesh,
+                           f"llama3-8b tp=2 ({', '.join(mesh)}) {kvd} KV",
+                           params=params, trace=("a",))
+        for run in ("a", "b"):
+            r, one = res[run], full[kvd][run]
+            tr = r["transfer"]
+            busy = ""
+            if "device_ms" in r:
+                ms = sum(r["device_ms"].values())
+                busy = (f" (traced), device busy {ms:.1f} ms "
+                        f"({ms / (r['wall_s'] * 1e3):.3f} of wall), by family "
+                        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+                            r["device_ms"].items(), key=lambda kv: -kv[1])))
+            log(f"tp=2 {kvd} run ({run}): wall {r['wall_s']:.3f} s{busy}, "
+                f"peak memory {r['peak_bytes']} B (the caller's "
+                f"full weights included), pool {r['pool_shard_bytes']} B a "
+                f"shard of {r['pool_global_bytes']} B, link bytes a shard "
+                f"d2h {tr['d2h_bytes_per_shard']} of {tr['d2h_bytes']}, h2d "
+                f"{tr['h2d_bytes_per_shard']} of {tr['h2d_bytes']}")
+            if (r["pool_shard_bytes"] * 2 != r["pool_global_bytes"]
+                    or tr["kv_shards"] != 2
+                    or tr["d2h_bytes_per_shard"] * 2 != tr["d2h_bytes"]
+                    or tr["h2d_bytes_per_shard"] * 2 != tr["h2d_bytes"]):
+                raise AssertionError(f"tp=2 {kvd} ({run}): a shard does not "
+                                     f"hold or move half the bytes")
+            # one logical launch per layer per decode iteration; the
+            # kernel's own counter counts each shard's launch
+            pa = paged[kvd]
+            if r["launches"][pa] != 2 * r["attn_launches"]:
+                raise AssertionError(f"tp=2 {kvd} ({run}): {pa} launched "
+                                     f"{r['launches'][pa]} times for "
+                                     f"{r['attn_launches']} layer launches")
+            idle = [k for k in ("kv_copy", pa, "flash_attention")
+                    if not r["launches"][k]]
+            if idle:
+                raise AssertionError(f"tp=2 {kvd} ({run}): kernels never "
+                                     f"launched {idle}")
+            share, first = agreement(one, r)
+            divs = first_divergences(one, r)
+            bad = [d for d in divs if min(d[2], d[3]) > DIVERGENCE_TIE]
+            log(f"tp=2 vs tp=1 (phase 5) {kvd} run ({run}): {share:.4f} of "
+                f"tokens agree; first divergence (req, step, margin tp=1, "
+                f"margin tp=2): {first}; {len(divs)} requests diverge, "
+                f"{len(bad)} with both margins above {DIVERGENCE_TIE}; "
+                f"rotations {r['rotations']} vs {one['rotations']}, decode "
+                f"batches {r['decode_batches']} vs {one['decode_batches']}, "
+                f"attn_launches {r['attn_launches']} vs "
+                f"{one['attn_launches']}")
+            if bad:
+                raise AssertionError(f"tp=2 {kvd} ({run}): diverges past a "
+                                     f"near tie: {bad}")
+            if (r["streams"] == one["streams"]
+                    and r["decode_batches"] == one["decode_batches"]
+                    and r["attn_launches"] != one["attn_launches"]):
+                raise AssertionError(f"tp=2 {kvd} ({run}): launch count "
+                                     f"depends on tp")
+        if not (res["b"]["rotations"] > 0):
+            raise AssertionError(f"tp=2 {kvd} run (b) did not rotate")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_reduced(torch, cfg, mesh_of, label):
+    """Phase 14 (b): the reduced llama3-8b in fp32 (the TP tests' BASE:
+    8/4/16) at tp 1, 2 and 4 under rotation, the plain reduced config (2
+    kv heads) at tp 1 and 4 (the replicated-attention fallback), and BASE
+    in the int8 tier at tp 1 and 2: on the card (``mesh_of(tp)`` the
+    shards' devices) the streams equal tp=1's and the CPU's from the same
+    weights. The int8 shards' scales against tp=1's: bitwise for the same
+    tokens stored directly, and end to end reported by layer."""
+    from repro_torch.configs import ServingConfig
+    from repro_torch.kernels import quant
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+    base = dataclasses.replace(cfg.reduced(), dtype="float32",
+                               **TP_BASE_HEADS)
+    fb = dataclasses.replace(cfg.reduced(), dtype="float32")
+    prompts = make_prompts(base, 5, (8, 16), (10, 16), seed=3)
+    stores = {}
+    for c, name, kvd, tps in ((base, "BASE", "bf16", (1, 2, 4)),
+                              (fb, "fallback", "bf16", (1, 4)),
+                              (base, "BASE", "int8", (1, 2))):
+        params = init_params(c, torch.Generator().manual_seed(42), "cpu",
+                             torch.float32)
+        on_card = tree_map(lambda t: t.to("cuda"), params)
+        one = None
+        for tp in tps:
+            sv = ServingConfig(num_hbm_blocks=16, num_dram_blocks=512,
+                               block_size=4, max_model_len=64,
+                               prefill_chunk=8, paged_runner=True, tp=tp,
+                               kv_dtype=kvd)
+            res = serve(torch, c, sv, prompts,
+                         mesh_of(tp) if tp > 1 else "cuda",
+                         params=on_card if tp == 1 else params,
+                         keep_store=kvd == "int8")
+            cpu = serve(torch, c, sv, prompts, "cpu", params=params)
+            one = one or res
+            log(f"{label} {name} {kvd} tp={tp}: rotations "
+                f"{res['rotations']}, card == tp=1 on the card "
+                f"{res['streams'] == one['streams']}, card == CPU "
+                f"{res['streams'] == cpu['streams']}, kernel launches "
+                f"{res['launches']}")
+            if res["rotations"] == 0:
+                raise AssertionError(f"{label} {name} tp={tp}: no rotation")
+            if not (res["streams"] == one["streams"] == cpu["streams"]):
+                raise AssertionError(f"{label} {name} {kvd} tp={tp}: streams "
+                                     f"differ from tp=1 or the CPU")
+            if kvd == "int8":
+                stores[tp] = res["store"]
+    want = stores[1].scales
+    got = torch.cat([t.to(want.device) for t in stores[2].scale_shards], -1)
+    rel = [((got[:, li] - want[:, li]).abs()
+            / want[:, li].abs().clamp(min=1e-30)).max().item()
+           for li in range(base.num_layers)]
+    log(f"{label} int8 tp=2 shard scales vs tp=1's slices, end to end: "
+        f"layer 0 bitwise {torch.equal(got[:, 0], want[:, 0])}, max rel "
+        f"diff by layer {[f'{x:.3e}' for x in rel]} (the all-reduce rounds "
+        f"the residual stream in another order)")
+    if max(rel) > 1e-5:
+        raise AssertionError(f"{label} int8 shard scales off by {max(rel)}")
+    # the same tokens stored into a pool and into its two kv-head shards
+    g = torch.Generator(device="cuda").manual_seed(7)
+    L, P, H, D, rows = 4, 4, 4, 16, 12
+    full = torch.zeros(rows, L, 2, P, H, D, dtype=torch.int8, device="cuda")
+    fsc = torch.zeros(rows, L, 2, H, device="cuda")
+    dev = mesh_of(2)
+    parts = [(torch.zeros(rows, L, 2, P, H // 2, D, dtype=torch.int8,
+                          device=d), torch.zeros(rows, L, 2, H // 2,
+                                                 device=d)) for d in dev]
+    for step in range(16):
+        # 9 distinct (row, layer, offset) slots, as a call of the runner
+        # writes (a slot written twice in one call is a race on the card)
+        slot = torch.randperm(rows * L * P, generator=g, device="cuda")[:9]
+        idx = [slot // (L * P), slot // P % L, slot % P]
+        for side in (0, 1):
+            x = torch.randn((9, H, D), generator=g, device="cuda") * (1 + step)
+            quant.quant_store_tokens(full, fsc, idx[0], idx[1], side, idx[2], x)
+            for i, ((pool, sc), d) in enumerate(zip(parts, dev)):
+                quant.quant_store_tokens(
+                    pool, sc, *(t.to(d) for t in idx[:2]), side,
+                    idx[2].to(d), x[:, 2 * i:2 * i + 2].to(d))
+    same = (torch.equal(torch.cat([p.to("cuda") for p, _ in parts], -2), full)
+            and torch.equal(torch.cat([s.to("cuda") for _, s in parts], -1),
+                            fsc))
+    log(f"{label} int8 store of the same tokens into a pool and its two "
+        f"kv-head shards: values and scales bitwise equal {same}")
+    if not same:
+        raise AssertionError("int8 shard scales are not the pool's slices")
+
+
+def tp_phase(torch, cfg, prompts, full):
+    """Tensor parallelism on the card (target 90 s): (a) full width at
+    tp=2 stacked on one card, (b) the reduced fp32 matrix, (c) (b) over two
+    cards where the machine has them. Returns the phase's kernel
+    launches."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    tp_full_width(torch, cfg, prompts, full)
+    log(f"phase 14 (a) wall: {time.perf_counter() - t_phase:.2f} s")
+    t0 = time.perf_counter()
+    tp_reduced(torch, cfg, lambda tp: ["cuda:0"] * tp, "tp stacked")
+    log(f"phase 14 (b) wall: {time.perf_counter() - t0:.2f} s")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        t0 = time.perf_counter()
+        tp_reduced(torch, cfg, lambda tp: [f"cuda:{i % n}" for i in
+                                           range(tp)], "tp over cards")
+        log(f"phase 14 (c) wall: {time.perf_counter() - t0:.2f} s")
+    else:
+        log(f"phase 14 (c) not run: the machine has {n} CUDA device; the "
+            f"cross-card all-reduce needs two")
+    launches = ops.launch_counts()
+    log(f"tp path kernel launches (each shard's launch counted): {launches}")
+    log(f"phase 14 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
 
 
 def main(argv) -> int:
@@ -1821,6 +2132,7 @@ def main(argv) -> int:
     errs = {}
     kernel_checks(torch, ops, ref, cfg, errs)
     int8_checks(torch, ops, ref, quant, cfg, errs)
+    tp_shard_checks(torch, ops, ref, cfg, errs)
 
     # 4. timing
     times = kernel_timing(torch, ops, ref, quant, cfg)
@@ -1919,6 +2231,10 @@ def main(argv) -> int:
     # 13. the launch tooling: audit, roofline, inspector, dry-run
     launches["tooling"], _ = tooling_phase(torch)
 
+    # 14. tensor parallelism: llama3-8b at tp=2 on the card, the reduced
+    # matrix on the card against the CPU
+    launches["tp"] = tp_phase(torch, cfg, prompts, full)
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -1940,7 +2256,8 @@ def main(argv) -> int:
                                 ("10_dense", launches["dense"]),
                                 ("11_families", launches["families"]),
                                 ("12_train", launches["train"]),
-                                ("13_tooling", launches["tooling"]))})
+                                ("13_tooling", launches["tooling"]),
+                                ("14_tp", launches["tp"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

@@ -145,9 +145,10 @@ class DuplexKV:
         # kv_shards == 1 — every chip moves full rows.
         tp = int(getattr(serving, "tp", 1) or 1)
         if tp > 1:
-            raise NotImplementedError(
-                "tensor parallelism is not ported yet (ROADMAP.md §1 item 3)")
-        self.kv_shards = 1
+            from repro_torch.distributed.tp import plan_tp_sharding
+            self.kv_shards = plan_tp_sharding(cfg, tp).kv_shards
+        else:
+            self.kv_shards = 1
         self.engine = engine_for_flags(
             hw, block_first=serving.block_first_layout,
             batched_kernel=serving.batched_transfer_kernel,

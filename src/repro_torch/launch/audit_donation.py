@@ -23,11 +23,16 @@ reference's jit boundary each replaces:
 - ``PagedModelRunner._decode`` and ``._prefill`` (``_jit_decode``,
   ``_jit_prefill``).
 
+The tensor-parallel half audits the same entries at tp=2 over a
+two-shard mesh (the reference's ``[tp=2]`` boundaries): every shard's pool
+and scales must keep their storage and hold the call's writes, and the
+growth stays below one shard's pool. ``main`` puts both shards on the
+audit's device; ``audit(..., tp2=[...])`` takes any two.
+
 The negative control is an out-of-place row copy,
 ``pool.index_copy(0, dst, pool[src])``, which returns a new tensor (the
 counterpart of the reference's ``kv_copy_tpu`` jitted without donation):
-the audit must find it not in place. The reference's tensor-parallel
-(tp=2) boundaries wait for ROADMAP.md §1 item 3.
+the audit must find it not in place.
 
     PYTHONPATH=src python -m repro_torch.launch.audit_donation [--device cpu]
 
@@ -84,25 +89,31 @@ def _cases(runner, gen) -> List[Case]:
     store = runner.store
     dev = store.device
     P = runner.serving.block_size
-    tag, q = (" [int8]", "_q") if store.quantized else ("", "")
+    q = "_q" if store.quantized else ""
+    tag = "".join((f" [tp={runner.tp}]" if runner.tp > 1 else "",
+                   " [int8]" if store.quantized else ""))
+
     def bufs():
-        return [store.pool] + ([store.scales] if store.quantized else [])
+        return list(store.pools) + (list(store.scale_shards)
+                                    if store.quantized else [])
 
     def fill(rows):
-        """Random values in ``rows`` of the pool (and scales), so a copy of
-        them changes its destination."""
-        idx = torch.as_tensor(rows, device=dev)
-        if store.quantized:
-            store.pool[idx] = torch.randint(
-                -127, 128, (len(rows),) + store.row_shape, generator=gen,
-                device=dev, dtype=torch.int32).to(torch.int8)
-            store.scales[idx] = torch.rand(
-                (len(rows),) + store.scale_row_shape, generator=gen,
-                device=dev) + 0.5
-        else:
-            store.pool[idx] = torch.randn(
-                (len(rows),) + store.row_shape, generator=gen,
-                device=dev).to(store.pool.dtype)
+        """Random values in ``rows`` of every shard's pool (and scales),
+        so a copy of them changes its destination."""
+        for pool, scales in zip(store.pools, store.scale_shards):
+            idx = torch.as_tensor(rows, device=pool.device)
+            shape = (len(rows),) + tuple(pool.shape[1:])
+            if store.quantized:
+                pool[idx] = torch.randint(
+                    -127, 128, shape, generator=gen, device=dev,
+                    dtype=torch.int32).to(pool.device, torch.int8)
+                scales[idx] = (torch.rand(
+                    (len(rows),) + tuple(scales.shape[1:]), generator=gen,
+                    device=dev) + 0.5).to(pool.device)
+            else:
+                pool[idx] = torch.randn(shape, generator=gen,
+                                        device=dev).to(pool.device,
+                                                       pool.dtype)
 
     def host_row():
         cpu = torch.Generator().manual_seed(int(torch.randint(
@@ -149,8 +160,8 @@ def _cases(runner, gen) -> List[Case]:
     def tiny_scales():
         """The int8 tier's running block scales only grow: make those of
         the rows decode writes tiny, so its token must raise them."""
-        if store.quantized:
-            store.scales[torch.as_tensor([1, 3], device=dev)] = 1e-6
+        for scales in store.scale_shards if store.quantized else ():
+            scales[torch.as_tensor([1, 3], device=scales.device)] = 1e-6
 
     def decode():
         runner._decode(runner._ids(toks), runner._ids(bt), runner._ids(cl))
@@ -171,25 +182,33 @@ def _cases(runner, gen) -> List[Case]:
     ]
 
 
-def _check(case: Case, pool_bytes: int, device: torch.device) -> Row:
+def _check(case: Case, pool_bytes: int) -> Row:
+    """Run one case; ``pool_bytes`` bounds its peak growth (one pool, one
+    shard's under tensor parallelism). On CUDA the growth is the largest
+    over the buffers' cards."""
     if case.prepare is not None:
         case.prepare()
-    idx = torch.as_tensor(list(case.rows), device=device)
     bufs = case.buffers()
-    before = [b[idx].clone() for b in bufs]
+    rows = list(case.rows)
+    before = [b[torch.as_tensor(rows, device=b.device)].clone()
+              for b in bufs]
     ptrs = [b.data_ptr() for b in bufs]
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        base = torch.cuda.memory_allocated(device)
+    cards = sorted({b.device for b in bufs if b.device.type == "cuda"},
+                   key=str)
+    base = {}
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[d] = torch.cuda.memory_allocated(d)
     out = case.run()
     growth = None
-    if cuda:
-        torch.cuda.synchronize(device)
-        growth = torch.cuda.max_memory_allocated(device) - base
-    in_place = sum(int(o.data_ptr() == p and not torch.equal(o[idx], b))
-                   for o, p, b in zip(out, ptrs, before))
+    for d in cards:
+        torch.cuda.synchronize(d)
+        g = torch.cuda.max_memory_allocated(d) - base[d]
+        growth = g if growth is None else max(growth, g)
+    in_place = sum(int(o.data_ptr() == p and not torch.equal(
+        o[torch.as_tensor(rows, device=o.device)], b))
+        for o, p, b in zip(out, ptrs, before))
     found = len(out)
     ok = in_place == (found if case.expect_in_place else 0)
     if case.expect_in_place and growth is not None:
@@ -198,11 +217,13 @@ def _check(case: Case, pool_bytes: int, device: torch.device) -> Row:
                pool_bytes, ok)
 
 
-def audit(cfg, serving, device, *, seed: int = 0) -> List[Row]:
+def audit(cfg, serving, device, *, seed: int = 0,
+          tp2: Optional[Sequence] = None) -> List[Row]:
     """Audit the runner's launch entries for ``cfg`` and ``serving`` on
-    ``device`` in the bf16 and the int8 tier, then the negative control.
-    The bf16 runner draws the weights from ``seed``; the int8 runner
-    shares them."""
+    ``device`` in the bf16 and the int8 tier; with ``tp2`` (the two
+    devices of a tp=2 mesh) the same at tp=2; then the negative control.
+    The first runner draws the weights from ``seed``; the others share
+    them (sliced at tp=2)."""
     from repro_torch.configs import GH200
     from repro_torch.device import resolve_device
     from repro_torch.serving.paged_runner import PagedModelRunner
@@ -210,15 +231,20 @@ def audit(cfg, serving, device, *, seed: int = 0) -> List[Row]:
     gen = torch.Generator(device=device).manual_seed(seed)
     rows: List[Row] = []
     params = pool = None
-    for kvd in ("bf16", "int8"):
+    runs = [(1, "bf16", device), (1, "int8", device)]
+    if tp2 is not None:
+        runs += [(2, "bf16", list(tp2)), (2, "int8", list(tp2))]
+    for tp, kvd, dev in runs:
         runner = PagedModelRunner(cfg, dataclasses.replace(
-            serving, kv_dtype=kvd), GH200, seed=seed, params=params,
-            device=device)
-        params = {"layers": runner._layers, "head": runner._head}
+            serving, kv_dtype=kvd, tp=tp), GH200, seed=seed, params=params,
+            device=dev)
+        if params is None:
+            params = {"layers": runner._layers, "head": runner._head}
         runner.bind(_KV())
         for case in _cases(runner, gen):
-            rows.append(_check(case, runner.store.pool_global_bytes, device))
-        pool = runner.store.pool
+            rows.append(_check(case, runner.store.pool_shard_bytes))
+        if tp == 1:
+            pool = runner.store.pool
         del runner
     # negative control: an out-of-place copy of rows 0, 1 into 2, 3
     flat = pool.view(pool.shape[0], -1)
@@ -229,8 +255,7 @@ def audit(cfg, serving, device, *, seed: int = 0) -> List[Row]:
         "kv_copy out of place (negative control)",
         "kv_copy_tpu (no donate — negative control)",
         lambda: [flat.index_copy(0, dst, flat[src])], lambda: [flat], [2, 3],
-        False),
-        flat.numel() * flat.element_size(), device))
+        False), flat.numel() * flat.element_size()))
     return rows
 
 
@@ -261,10 +286,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' to run there)")
     args = ap.parse_args(argv)
-    rows = audit(*small_config(), args.device)
+    from repro_torch.device import resolve_device
+    tp2 = [resolve_device(args.device)] * 2
+    rows = audit(*small_config(), args.device, tp2=tp2)
     print_table(rows)
-    print("# note: tp=2 sharded launch entries not audited (tensor "
-          "parallelism waits for ROADMAP.md §1 item 3)")
+    print(f"# tp=2 shards on: {', '.join(str(d) for d in tp2)}")
     failures = [r.name for r in rows if not r.ok]
     if failures:
         print(f"# AUDIT FAILED: not in place or unexpectedly in place: "

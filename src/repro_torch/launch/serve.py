@@ -22,9 +22,16 @@ Disaggregated prefill/decode serving with cross-replica KV migration:
     PYTHONPATH=src python -m repro_torch.launch.serve --rps 30 \
         --duration 40 --arrival burst --disagg --json
 
+Tensor parallelism: one replica over ``--tp`` shards. On the CPU every
+shard is the CPU; on CUDA it needs ``--tp`` cards, unless ``--device``
+lists the shards' devices, comma-separated (``cuda:0,cuda:0`` stacks two
+shards on one card: it proves the sharded layout, not a TP speed-up):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu \
+        --rps 5 --duration 5 --json
+
 ``--paged-runner`` runs on CUDA unless ``--device cpu`` is given; with no
 CUDA device and no ``--device cpu`` it fails rather than fall back.
-``--tp > 1`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +41,24 @@ import dataclasses
 from repro_torch.serving.telemetry import emit_json_report
 
 
+def _devices(arg):
+    """``--device``: one device, or a comma-separated list (one a shard)."""
+    if arg is None or "," not in arg:
+        return arg
+    return [d.strip() for d in arg.split(",")]
+
+
 def main(argv=None):
+    # --tp is checked before anything is built: too few cards fail here
+    # with the recipe (launch.hostenv), as the reference's check does
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--tp", type=int, default=1)
+    pre.add_argument("--device", default=None)
+    pre_args, _ = pre.parse_known_args(argv)
+    if pre_args.tp > 1:
+        from repro_torch.launch.hostenv import ensure_host_devices
+        ensure_host_devices(pre_args.tp, _devices(pre_args.device))
+
     from repro_torch.serving.router import ROUTER_POLICIES
 
     ap = argparse.ArgumentParser()
@@ -110,9 +134,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where --paged-runner executes: CUDA unless "
                          "'cpu' is given (no CUDA device and no --device "
-                         "cpu is an error, never a fallback)")
+                         "cpu is an error, never a fallback); under --tp, "
+                         "a comma-separated list of one device per shard")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism; only 1 is ported")
+                    help="tensor parallelism: shards of one replica")
     ap.add_argument("--paged-max-prompt", type=int, default=40,
                     help="prompt-length clamp under --paged-runner")
     ap.add_argument("--paged-max-output", type=int, default=8,
@@ -160,10 +185,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: tensor parallelism is not ported yet "
-            "(ROADMAP.md §1 item 3)")
+    device = _devices(args.device)
 
     from repro_torch.configs import HW_PROFILES, RotaSchedConfig, ServingConfig, get_config
     from repro_torch.serving.disagg import DisaggCluster
@@ -245,20 +267,20 @@ def main(argv=None):
             migration_watermark=args.migration_watermark,
             colocate_watermark=args.colocate_watermark,
             runner_cfg=runner_cfg, runner_seed=args.seed,
-            device=args.device)
+            device=device)
         rep = cluster.run(reqs)
         stats = cluster.aggregate_stats()
         cache_counters = cluster.aggregate_cache_counters()
     elif args.replicas > 1:
         router = Router(cfg, sv, hw, replicas=args.replicas,
                         policy=args.router, runner_cfg=runner_cfg,
-                        runner_seed=args.seed, device=args.device)
+                        runner_seed=args.seed, device=device)
         rep = router.run(reqs)
         stats = router.aggregate_stats()
         cache_counters = router.aggregate_cache_counters()
     else:
         eng = ServingEngine(cfg, sv, hw, runner_cfg=runner_cfg,
-                            runner_seed=args.seed, device=args.device)
+                            runner_seed=args.seed, device=device)
         rep = eng.run(reqs)
         stats = eng.stats
         cache_counters = eng.kv.cache_counters()
@@ -292,10 +314,23 @@ def main(argv=None):
                block_bytes=cores[0].kv.block_bytes,
                d2h_bytes=sum(t["d2h_bytes"] for t in tc),
                h2d_bytes=sum(t["h2d_bytes"] for t in tc))
+    if args.tp > 1:
+        # per-shard link accounting: what ONE shard's link actually carried
+        row.update(tp=args.tp, kv_shards=tc[0]["kv_shards"],
+                   d2h_bytes_per_shard=sum(t["d2h_bytes_per_shard"]
+                                           for t in tc),
+                   h2d_bytes_per_shard=sum(t["h2d_bytes_per_shard"]
+                                           for t in tc))
     if args.paged_runner:
         # per-replica executors: sum counters cluster-wide (replicas == 1
         # degenerates to the single engine's executor)
         execs = [c.executor for c in cores]
+        if args.tp > 1:
+            row.update(
+                pool_shard_bytes=sum(e.store.pool_shard_bytes
+                                     for e in execs),
+                pool_global_bytes=sum(e.store.pool_global_bytes
+                                      for e in execs))
         row.update(
             paged_runner=True,
             decode_batches=sum(e.decode_batches for e in execs),

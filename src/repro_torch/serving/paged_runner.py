@@ -1,8 +1,8 @@
 """PagedModelRunner: batched real execution over a pooled block-first KV
 cache, on the hand-written CUDA kernels and DuplexKV (paper §4.3).
 
-The port of ``src/repro/serving/paged_runner.py`` at ``tp == 1``, in
-bf16/fp32 and in the int8 KV tier. The engine's logical block decisions
+The port of ``src/repro/serving/paged_runner.py``, in bf16/fp32 and in
+the int8 KV tier, on one device or tensor-parallel. The engine's logical block decisions
 ARE the physical layout: one pooled ``(rows, L, 2, P, Hkv, D)`` device
 tensor holds every layer of one logical KV block contiguously per row, and
 rows are addressed by the ``TwoTierBlockTable``'s ``hbm_slot``s — the same
@@ -27,6 +27,18 @@ integers the scheduler budgets with.
   dequantizes inside the kernel; prefill dequantizes the gathered context
   before the flash kernel.
 
+* **Tensor parallelism** (``ServingConfig.tp > 1``): one logical replica
+  over a 1-D ``("model",)`` mesh of ``tp`` shards (``distributed/tp.py``,
+  ``launch.mesh.make_tp_mesh``). Each shard holds its own contiguous
+  slice of the weights (q/k/v heads and ``wo`` rows by kv-head group,
+  ``d_ff`` of the MLP) and a pool of ``Hkv/tp`` heads per row; the row
+  dim keeps its GLOBAL slot ids, so the block table, DuplexKV and the
+  prefix cache never see TP. Each shard runs the same kernels on its own
+  heads; the partial sums of ``wo`` and ``w_down`` are all-reduced before
+  the residual add. When ``tp > num_kv_heads`` attention and the pool are
+  replicated and only the MLP shards. The host tier holds full global
+  rows. At ``tp == 1`` there is one shard and no reduction.
+
 Where JAX donated the pool to each jitted call, the port updates the pool
 and the scales in place (the K/V token stores and every row copy), so
 their storage never moves. The reference keeps separate ``_*_impl_q``
@@ -49,6 +61,9 @@ from repro_torch.configs.base import (GH200, HardwareProfile, ModelConfig,
 from repro_torch.core.blocktable import BlockLoc
 from repro_torch.core.types import RequestState
 from repro_torch.device import resolve_device
+from repro_torch.distributed.tp import (TPMesh, TPPlan, all_reduce,
+                                        head_pspecs, layer_pspecs,
+                                        plan_tp_sharding, shard_slice)
 from repro_torch.kernels.kv_copy import kv_copy
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.quant import kv_scale_shape, quant_store_tokens
@@ -82,11 +97,21 @@ class PagedKVStore:
     protocol (``run_d2d``/``run_d2h``/``run_h2d``): each direction is a
     batched ``kv_copy`` launch through staging plus one contiguous host
     copy.
+
+    With a ``tp_plan`` and its ``mesh`` the device tier is one pool (and
+    scale tensor) per shard, ``pools[i]`` on ``mesh.devices[i]``, of
+    ``Hkv/kv_shards`` heads; ``pool``/``scales`` are shard 0's. Every row
+    movement runs on every shard with the same slots. The host tier holds
+    full global rows: a readback concatenates the shards' heads, an upload
+    splits them; a replicated plan (``kv_shards == 1``) writes every shard
+    and reads shard 0.
     """
 
     def __init__(self, cfg: ModelConfig, serving: ServingConfig,
                  dtype: torch.dtype, *, device=None, staging: int = 64,
-                 double_buffer: bool = False, kv_dtype: str = "bf16"):
+                 double_buffer: bool = False, kv_dtype: str = "bf16",
+                 tp_plan: Optional[TPPlan] = None,
+                 mesh: Optional[TPMesh] = None):
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -98,9 +123,15 @@ class PagedKVStore:
             raise ValueError(
                 f"double_buffer splits staging into an H2D half and two D2H "
                 f"gather buffers; needs staging >= 4, got {staging}")
+        if (mesh is None) != (tp_plan is None):
+            raise ValueError("a tensor-parallel store needs both tp_plan "
+                             "and mesh")
         L = cfg.num_layers
         P = serving.block_size
-        self.device = resolve_device(device)
+        self.devices = (list(mesh.devices) if mesh is not None
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
+        self.kv_shards = tp_plan.kv_shards if tp_plan is not None else 1
         self.nb = serving.num_hbm_blocks
         self.staging = staging
         self.double_buffer = double_buffer
@@ -121,24 +152,32 @@ class PagedKVStore:
             self.h2d_base = self.nb
             self.h2d_chunk = staging
             self.d2h_chunk = staging
+        # the global row (the host tier's) and one shard's
         self.row_shape = (L, 2, P, cfg.num_kv_heads, cfg.head_dim)
+        self.shard_heads = cfg.num_kv_heads // self.kv_shards
+        shard_row = (L, 2, P, self.shard_heads, cfg.head_dim)
         rows = self.nb + staging + 1
         # int8 tier: one fp32 scale per (row, layer, K/V side, kv head),
         # updated in place like the pool and moved with the same slots
         self.quantized = kv_dtype == "int8"
-        self.scales: Optional[torch.Tensor] = None
         self.scale_row_shape = None
+        self.scale_shards: List[Optional[torch.Tensor]] = [None] * len(
+            self.devices)
         if self.quantized:
             dtype = torch.int8
             self.scale_row_shape = kv_scale_shape(self.row_shape)
-            self.scales = torch.zeros((rows,) + self.scale_row_shape,
-                                      dtype=torch.float32, device=self.device)
-        self.pool = torch.zeros((rows,) + self.row_shape, dtype=dtype,
-                                device=self.device)
+            self.scale_shards = [
+                torch.zeros((rows,) + kv_scale_shape(shard_row),
+                            dtype=torch.float32, device=d)
+                for d in self.devices]
+        self.pools: List[torch.Tensor] = [
+            torch.zeros((rows,) + shard_row, dtype=dtype, device=d)
+            for d in self.devices]
         # dram_slot -> CPU row | (int8 row, fp32 scale row)
         self.host: Dict[int, Union[torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]] = {}
-        # counters (benchmarks / tests)
+        # counters (benchmarks / tests); a launch here is one per row
+        # movement, on every shard
         self.copy_launches = 0
         self.d2d_rows = 0
         self.d2h_rows = 0
@@ -150,17 +189,60 @@ class PagedKVStore:
         self.upload_launch_wall_s = 0.0
 
     @property
-    def pool_shard_bytes(self) -> int:
-        """Bytes one device holds: the whole pool at ``tp == 1``, scales
-        included in the int8 tier (they are part of the KV footprint)."""
-        return self.pool_global_bytes
+    def pool(self) -> torch.Tensor:
+        """The pool (shard 0's under tensor parallelism)."""
+        return self.pools[0]
+
+    @pool.setter
+    def pool(self, t: torch.Tensor) -> None:
+        self.pools[0] = t
 
     @property
-    def pool_global_bytes(self) -> int:
+    def scales(self) -> Optional[torch.Tensor]:
+        """The int8 tier's scales (shard 0's under tensor parallelism)."""
+        return self.scale_shards[0]
+
+    @scales.setter
+    def scales(self, t: Optional[torch.Tensor]) -> None:
+        self.scale_shards[0] = t
+
+    @property
+    def pool_shard_bytes(self) -> int:
+        """Bytes ONE device holds: global/kv_shards when the kv-head dim is
+        sharded, the full pool when replicated or at ``tp == 1``; scales
+        included in the int8 tier (they are part of the KV footprint)."""
         n = self.pool.numel() * self.pool.element_size()
         if self.quantized:
             n += self.scales.numel() * self.scales.element_size()
         return n
+
+    @property
+    def pool_global_bytes(self) -> int:
+        return self.pool_shard_bytes * self.kv_shards
+
+    def _split(self, x: torch.Tensor, i: int, dim: int) -> torch.Tensor:
+        """Shard ``i``'s kv heads of global rows ``x`` (dim ``dim``)."""
+        if self.kv_shards == 1:
+            return x
+        return x.narrow(dim, i * self.shard_heads, self.shard_heads)
+
+    def _join(self, parts: List[torch.Tensor], dim: int) -> torch.Tensor:
+        """Global rows from the shards' rows (shard 0's if replicated),
+        joined on shard 0's device."""
+        if self.kv_shards == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts], dim)
+
+    def _upload(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Host rows ``x`` for each shard: one upload a device, split there
+        (at ``tp == 1``, ``x`` itself, copied straight into the pool)."""
+        if len(self.pools) == 1:
+            return [x]
+        on: Dict[torch.device, torch.Tensor] = {}
+        for p in self.pools:
+            if p.device not in on:
+                on[p.device] = x.to(p.device)
+        return [on[p.device] for p in self.pools]
 
     def _copy_rows(self, src: Sequence[int], dst: Sequence[int]) -> None:
         """One batched row-copy launch: pool[dst[i]] = pool[src[i]] (and a
@@ -174,9 +256,10 @@ class PagedKVStore:
         s[:n], d[:n] = src, dst
         t0 = time.perf_counter()
         with record_function("superinfer.kv_copy"):
-            kv_copy(self.pool.view(self.pool.shape[0], -1), s, d)
-            if self.quantized:
-                kv_copy(self.scales.view(self.scales.shape[0], -1), s, d)
+            for pool, scales in zip(self.pools, self.scale_shards):
+                kv_copy(pool.view(pool.shape[0], -1), s, d)
+                if self.quantized:
+                    kv_copy(scales.view(scales.shape[0], -1), s, d)
         self.copy_launch_wall_s += time.perf_counter() - t0
         self.copy_launches += 1
 
@@ -194,9 +277,12 @@ class PagedKVStore:
         next gather launch is already queued."""
         n = len(chunk)
         t0 = time.perf_counter()
-        data = self.pool[base:base + n].cpu()
+        k = self.kv_shards
+        data = self._join([p[base:base + n] for p in self.pools[:k]],
+                          -2).cpu()
         if self.quantized:
-            sdata = self.scales[base:base + n].cpu()
+            sdata = self._join([sc[base:base + n]
+                                for sc in self.scale_shards[:k]], -1).cpu()
             for j, d in enumerate(chunk):
                 self.host[d.dst_slot] = (data[j].clone(), sdata[j].clone())
         else:
@@ -246,12 +332,16 @@ class PagedKVStore:
             base = self.h2d_base
             with record_function("superinfer.kv_upload"):
                 if self.quantized:
-                    self.pool[base:base + n].copy_(
-                        torch.stack([r[0] for r in rows]))
-                    self.scales[base:base + n].copy_(
-                        torch.stack([r[1] for r in rows]))
+                    vals = self._upload(torch.stack([r[0] for r in rows]))
+                    svals = self._upload(torch.stack([r[1] for r in rows]))
                 else:
-                    self.pool[base:base + n].copy_(torch.stack(rows))
+                    vals = self._upload(torch.stack(rows))
+                for i, (pool, scales) in enumerate(zip(self.pools,
+                                                       self.scale_shards)):
+                    pool[base:base + n].copy_(self._split(vals[i], i, -2))
+                    if self.quantized:
+                        scales[base:base + n].copy_(
+                            self._split(svals[i], i, -1))
             self.upload_launch_wall_s += time.perf_counter() - t0
             self._copy_rows(list(range(self.h2d_base, self.h2d_base + n)),
                             [d.dst_slot for d in chunk])
@@ -274,6 +364,14 @@ class PagedModelRunner(Executor):
     ``record_margins = True`` makes the runner keep, per request, the top-2
     logit margin of every token it emits (``margins``), read in the same
     host sync as the tokens.
+
+    With ``serving.tp > 1`` the runner spans the ``tp`` shards of
+    ``make_tp_mesh(tp, device)`` (``device`` may then be a list of ``tp``
+    devices): the full weights are sliced once, up front, by
+    ``layer_pspecs`` onto each shard's device (every shard gets its own
+    copy of the replicated head), and ``_layers``/``_head`` are shard 0's.
+    ``attn_launches`` stays one per layer per decode iteration whatever
+    ``tp`` is; the kernel modules' counters count each shard's launch.
     """
 
     supports_prefix_cache = True
@@ -296,24 +394,40 @@ class PagedModelRunner(Executor):
             raise ValueError(
                 "PagedModelRunner supports uniform dense-attention decoder "
                 f"configs only; {model_cfg.name} has " + ", ".join(unsupported))
-        if int(getattr(serving, "tp", 1) or 1) > 1:
-            raise NotImplementedError(
-                "tensor parallelism is not ported yet (ROADMAP.md §1 item 3)")
         self.kv_dtype = getattr(serving, "kv_dtype", "bf16") or "bf16"
         self.cfg = model_cfg
         self.serving = serving
-        self.device = resolve_device(device)
+        self.tp = int(getattr(serving, "tp", 1) or 1)
+        self.tp_plan = plan_tp_sharding(model_cfg, self.tp)
+        self.mesh: Optional[TPMesh] = None
+        if self.tp_plan.trivial:
+            self.devices = [resolve_device(device)]
+        else:
+            from repro_torch.launch.mesh import make_tp_mesh
+            self.mesh = make_tp_mesh(self.tp, device)
+            self.devices = list(self.mesh.devices)
+        self.device = self.devices[0]
         self.sim = sim or SimExecutor(timing_cfg or model_cfg, hw,
-                                      kv_dtype=self.kv_dtype)
+                                      tp=self.tp, kv_dtype=self.kv_dtype)
         self.dtype = dtype_of(model_cfg.dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(model_cfg, gen, self.device, self.dtype)
-        self._layers: List[dict] = params["layers"]
-        self._head: dict = params["head"]
-        if len(self._layers) != model_cfg.num_layers:
-            raise ValueError(f"params hold {len(self._layers)} layers, "
+        layers, head = params["layers"], params["head"]
+        if len(layers) != model_cfg.num_layers:
+            raise ValueError(f"params hold {len(layers)} layers, "
                              f"{model_cfg.name} has {model_cfg.num_layers}")
+        if self.mesh is None:
+            self._shards: List[Tuple[List[dict], dict]] = [(layers, head)]
+        else:
+            lp, hp = layer_pspecs(self.tp_plan), head_pspecs(head)
+            self._shards = [
+                ([{k: shard_slice(v, lp[k], i, self.tp, dev)
+                   for k, v in layer.items()} for layer in layers],
+                 {k: shard_slice(v, hp[k], i, self.tp, dev)
+                  for k, v in head.items()})
+                for i, dev in enumerate(self.devices)]
+        self._layers, self._head = self._shards[0]
         self.store: Optional[PagedKVStore] = None
         self.kv = None
         self.record_margins = False
@@ -337,7 +451,9 @@ class PagedModelRunner(Executor):
         self.store = PagedKVStore(
             self.cfg, self.serving, self.dtype, device=self.device,
             double_buffer=bool(getattr(self.serving, "pipeline", False)),
-            kv_dtype=self.kv_dtype)
+            kv_dtype=self.kv_dtype,
+            tp_plan=None if self.mesh is None else self.tp_plan,
+            mesh=self.mesh)
         kv.attach_data_backend(self.store)
 
     # ------------------------------------------------------ executor protocol
@@ -493,63 +609,90 @@ class PagedModelRunner(Executor):
         return torch.stack([logits.argmax(dim=-1).float(),
                             top2[..., 0] - top2[..., 1]], dim=-1)
 
-    def _store_kv(self, li: int, wrow, woff, k, v) -> None:
-        """Write per-token K/V ``(T, Hkv, D)`` of layer ``li`` into the pool
-        at (row ``wrow``, in-block offset ``woff``), in place: a plain
-        scatter, or in the int8 tier the running-scale quantized store."""
-        pool = self.store.pool
+    def _store_kv(self, sh: int, li: int, wrow, woff, k, v) -> None:
+        """Write per-token K/V ``(T, Hkv, D)`` of layer ``li`` into shard
+        ``sh``'s pool at (row ``wrow``, in-block offset ``woff``), in place:
+        a plain scatter, or in the int8 tier the running-scale quantized
+        store."""
+        pool = self.store.pools[sh]
         if self.store.quantized:
+            scales = self.store.scale_shards[sh]
             lrow = torch.full_like(wrow, li)
-            quant_store_tokens(pool, self.store.scales, wrow, lrow, 0, woff,
-                               k)
-            quant_store_tokens(pool, self.store.scales, wrow, lrow, 1, woff,
-                               v)
+            quant_store_tokens(pool, scales, wrow, lrow, 0, woff, k)
+            quant_store_tokens(pool, scales, wrow, lrow, 1, woff, v)
             return
         pool[wrow, li, 0, woff] = k.to(pool.dtype)
         pool[wrow, li, 1, woff] = v.to(pool.dtype)
 
-    def _context(self, li: int, btl, side: int, dtype) -> torch.Tensor:
-        """Layer ``li``'s K (side 0) or V (side 1) of pool rows ``btl``
-        (MB,), gathered as ``(1, MB * P, Hkv, D)`` in ``dtype``; the int8
-        tier dequantizes it in fp32 first."""
-        pool = self.store.pool
+    def _context(self, sh: int, li: int, btl, side: int,
+                 dtype) -> torch.Tensor:
+        """Layer ``li``'s K (side 0) or V (side 1) of shard ``sh``'s pool
+        rows ``btl`` (MB,), gathered as ``(1, MB * P, Hkv, D)`` in
+        ``dtype``; the int8 tier dequantizes it in fp32 first."""
+        pool = self.store.pools[sh]
         n = btl.shape[0] * pool.shape[3]
         hkv, hd = pool.shape[-2], pool.shape[-1]
         ctx = pool[btl, li, side]
         if self.store.quantized:
-            ctx = (ctx.float()
-                   * self.store.scales[btl, li, side][:, None, :, None])
+            ctx = (ctx.float() * self.store.scale_shards[sh][
+                btl, li, side][:, None, :, None])
         return ctx.reshape(1, n, hkv, hd).to(dtype)
+
+    def _on_shards(self, *ts: torch.Tensor) -> List[Tuple[torch.Tensor, ...]]:
+        """``ts`` on each shard's device (the same tensors where it is
+        shard 0's)."""
+        return [tuple(t.to(d) for t in ts) for d in self.devices]
+
+    def _residual(self, xs: List[torch.Tensor], parts: List[torch.Tensor],
+                  reduce: bool) -> List[torch.Tensor]:
+        """Each shard's residual stream plus its branch output; the
+        branch's partial sums are all-reduced first when ``reduce``."""
+        if reduce:
+            parts = all_reduce(parts, self.devices)
+        return [x + p for x, p in zip(xs, parts)]
 
     @torch.no_grad()
     def _decode(self, toks, bt, cl) -> torch.Tensor:
         """toks/cl: (B,); bt: (B, MB) pool rows (trash row on padded
-        lanes/slots). Per layer: write the new token's K/V into its tail
-        block row in place, then one paged-attention launch over the whole
-        batch (its int8 mode in the int8 tier)."""
+        lanes/slots). Per layer and shard: write the new token's K/V into
+        its tail block row in place, then one paged-attention launch over
+        the whole batch (its int8 mode in the int8 tier)."""
         cfg = self.cfg
-        pool = self.store.pool
         P = self.serving.block_size
         MB = bt.shape[1]
-        x = self._head["embed"][toks.long()]                 # (B, d)
-        pos = cl[:, None]                                    # (B, 1)
         blk = torch.clamp(cl // P, 0, MB - 1).long()
         wrow = bt.gather(1, blk[:, None])[:, 0].long()
         woff = (cl % P).long()
-        for li, p in enumerate(self._layers):
-            h = rms_norm(x[:, None], p["ln1"], cfg.rms_eps)  # (B, 1, d)
-            q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-            k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-            v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-            q = apply_rope(q, pos, cfg.rope_theta)
-            k = apply_rope(k, pos, cfg.rope_theta)
-            self._store_kv(li, wrow, woff, k[:, 0], v[:, 0])
-            out = paged_attention(q[:, 0].contiguous(), pool, bt, cl + 1,
-                                  layer=li, kv_scales=self.store.scales)
-            x = x + torch.einsum("bhk,hkd->bd", out, p["wo"])
-            h2 = rms_norm(x[:, None], p["ln2"], cfg.rms_eps)
-            x = x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])[:, 0]
-        return self._top2(x)
+        on = self._on_shards(toks, bt, cl, wrow, woff)
+        xs = [head["embed"][o[0].long()]                     # (B, d)
+              for (_, head), o in zip(self._shards, on)]
+        for li in range(len(self._layers)):
+            parts = []
+            for sh, ((layers, _), (_, bt_s, cl_s, wrow_s, woff_s)) in \
+                    enumerate(zip(self._shards, on)):
+                p = layers[li]
+                pos = cl_s[:, None]                          # (B, 1)
+                h = rms_norm(xs[sh][:, None], p["ln1"], cfg.rms_eps)
+                q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+                k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+                v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+                q = apply_rope(q, pos, cfg.rope_theta)
+                k = apply_rope(k, pos, cfg.rope_theta)
+                self._store_kv(sh, li, wrow_s, woff_s, k[:, 0], v[:, 0])
+                out = paged_attention(
+                    q[:, 0].contiguous(), self.store.pools[sh], bt_s,
+                    cl_s + 1, layer=li,
+                    kv_scales=self.store.scale_shards[sh])
+                parts.append(torch.einsum("bhk,hkd->bd", out, p["wo"]))
+            xs = self._residual(xs, parts, self.tp_plan.shard_kv)
+            parts = []
+            for sh, (layers, _) in enumerate(self._shards):
+                p = layers[li]
+                h2 = rms_norm(xs[sh][:, None], p["ln2"], cfg.rms_eps)
+                parts.append(swiglu(h2, p["w_gate"], p["w_up"],
+                                    p["w_down"])[:, 0])
+            xs = self._residual(xs, parts, self.tp_plan.shard_mlp)
+        return self._top2(xs[0])
 
     @torch.no_grad()
     def _prefill(self, ids, start: int, nvalid: int, bt) -> torch.Tensor:
@@ -557,14 +700,13 @@ class PagedModelRunner(Executor):
         ids; start: the chunk's absolute position; nvalid: real chunk
         length; bt: (MB,) the request's pool rows. K/V scatter into the
         assigned rows in place, attention over the gathered block context
-        (earlier chunks and shared cache-hit blocks included). Returns
-        (argmax, margin) at the chunk tail (meaningful only when the chunk
-        completes the prompt)."""
+        (earlier chunks and shared cache-hit blocks included), per shard.
+        Returns (argmax, margin) at the chunk tail (meaningful only when
+        the chunk completes the prompt)."""
         cfg = self.cfg
         P = self.serving.block_size
         T = ids.shape[0]
         MB = bt.shape[0]
-        x = self._head["embed"][ids.long()][None]            # (1, T, d)
         tpos = start + torch.arange(T, device=self.device)
         valid = torch.arange(T, device=self.device) < nvalid
         blk = torch.clamp(tpos // P, 0, MB - 1)
@@ -572,19 +714,31 @@ class PagedModelRunner(Executor):
                            torch.full_like(blk, self.store.trash_row))
         woff = tpos % P
         btl = bt.long()
-        for li, p in enumerate(self._layers):
-            h = rms_norm(x, p["ln1"], cfg.rms_eps)
-            q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-            k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-            v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-            q = apply_rope(q, tpos[None], cfg.rope_theta)
-            k = apply_rope(k, tpos[None], cfg.rope_theta)
-            self._store_kv(li, wrow, woff, k[0], v[0])
-            k_ctx = self._context(li, btl, 0, k.dtype)
-            v_ctx = self._context(li, btl, 1, v.dtype)
-            out = flash_attention(q.contiguous(), k_ctx, v_ctx, causal=True,
-                                  q_offset=start)
-            x = x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
-            h2 = rms_norm(x, p["ln2"], cfg.rms_eps)
-            x = x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
-        return self._top2(x[0, nvalid - 1])
+        on = self._on_shards(ids, tpos, wrow, woff, btl)
+        xs = [head["embed"][o[0].long()][None]               # (1, T, d)
+              for (_, head), o in zip(self._shards, on)]
+        for li in range(len(self._layers)):
+            parts = []
+            for sh, ((layers, _), (_, tpos_s, wrow_s, woff_s, btl_s)) in \
+                    enumerate(zip(self._shards, on)):
+                p = layers[li]
+                h = rms_norm(xs[sh], p["ln1"], cfg.rms_eps)
+                q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+                k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+                v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+                q = apply_rope(q, tpos_s[None], cfg.rope_theta)
+                k = apply_rope(k, tpos_s[None], cfg.rope_theta)
+                self._store_kv(sh, li, wrow_s, woff_s, k[0], v[0])
+                k_ctx = self._context(sh, li, btl_s, 0, k.dtype)
+                v_ctx = self._context(sh, li, btl_s, 1, v.dtype)
+                out = flash_attention(q.contiguous(), k_ctx, v_ctx,
+                                      causal=True, q_offset=start)
+                parts.append(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+            xs = self._residual(xs, parts, self.tp_plan.shard_kv)
+            parts = []
+            for sh, (layers, _) in enumerate(self._shards):
+                p = layers[li]
+                h2 = rms_norm(xs[sh], p["ln2"], cfg.rms_eps)
+                parts.append(swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]))
+            xs = self._residual(xs, parts, self.tp_plan.shard_mlp)
+        return self._top2(xs[0][0, nvalid - 1])

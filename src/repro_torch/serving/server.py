@@ -37,7 +37,9 @@ exit — code 0 on a clean drain, 1 if anything was cut off.
 
 Real execution (``paged_runner``) runs on CUDA unless the config names
 ``"device": "cpu"``; with no CUDA device and no ``"cpu"``, building the
-engine raises instead of falling back.
+engine raises instead of falling back. With ``tp > 1`` one replica spans
+``tp`` shards: on the CPU, on ``tp`` cards, or on the list of ``tp``
+devices ``"device"`` names (a repeated card stacks shards on it).
 
 Run standalone (the supervised path is ``launch.server_main``)::
 
@@ -53,7 +55,7 @@ import json
 import signal
 import sys
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 from repro_torch.serving.async_engine import (AsyncServingEngine,
                                               ServiceDraining, ServiceStopped)
@@ -89,8 +91,9 @@ class ServerConfig:
     prefix_cache: bool = False
     paged_runner: bool = False        # real reduced-model execution
     # where real execution runs: None = CUDA (an error without a card),
-    # "cpu", "cuda" or "cuda:N"
-    device: Optional[str] = None
+    # "cpu", "cuda" or "cuda:N"; under tp > 1 also a list of tp of them
+    # (or one string, comma-separated), one device per shard
+    device: Optional[Union[str, List[str]]] = None
     tp: int = 1                       # tensor parallelism (devices/replica)
     kv_dtype: str = "bf16"            # "int8" = quantized KV tier
     hbm_blocks: int = 4000
@@ -131,10 +134,13 @@ class ServerConfig:
             problems.append("replicas must be >= 1")
         if self.tp < 1:
             problems.append("tp must be >= 1")
-        if not (self.device is None or self.device in ("cpu", "cuda")
-                or (isinstance(self.device, str)
-                    and self.device.startswith("cuda:")
-                    and self.device[5:].isdigit())):
+        devs = self.devices()
+        if isinstance(devs, list):
+            if len(devs) != self.tp or not all(map(_device_ok, devs)):
+                problems.append(f"device must list tp={self.tp} devices, "
+                                f"each 'cpu', 'cuda' or 'cuda:N', got "
+                                f"{self.device!r}")
+        elif not (devs is None or _device_ok(devs)):
             problems.append(f"device must be None, 'cpu', 'cuda' or "
                             f"'cuda:N', got {self.device!r}")
         if self.kv_dtype not in ("bf16", "int8"):
@@ -168,12 +174,16 @@ class ServerConfig:
     def to_dict(self) -> Dict[str, object]:
         return dataclasses.asdict(self)
 
+    def devices(self):
+        """``device`` as one device, or a list (one a shard)."""
+        if isinstance(self.device, str) and "," in self.device:
+            return [d.strip() for d in self.device.split(",")]
+        if isinstance(self.device, (list, tuple)):
+            return list(self.device)
+        return self.device
+
     def build_engine(self):
         """Construct the engine-like object this config describes."""
-        if self.tp > 1:
-            raise NotImplementedError(
-                "tp > 1: tensor parallelism is not ported yet "
-                "(ROADMAP.md §1 item 3)")
         from repro_torch.configs import HW_PROFILES, ServingConfig, get_config
         from repro_torch.device import resolve_device
         from repro_torch.serving.core import EngineCore
@@ -190,7 +200,14 @@ class ServerConfig:
                            kv_dtype=self.kv_dtype,
                            telemetry=self.telemetry)
         hw = HW_PROFILES[self.hw]
-        device = resolve_device(self.device)
+        if self.tp > 1:
+            # too few cards fail here with the recipe; the runner builds
+            # the mesh from the same device (or list of devices)
+            from repro_torch.launch.hostenv import ensure_host_devices
+            device = self.devices()
+            ensure_host_devices(self.tp, device)
+        else:
+            device = resolve_device(self.device)
         runner_cfg = None
         if self.paged_runner:   # real execution: reduced fp32 model
             runner_cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
@@ -206,6 +223,12 @@ class ServerConfig:
                           runner_seed=self.seed, device=device)
         return EngineCore(cfg, sv, hw, runner_cfg=runner_cfg,
                           runner_seed=self.seed, device=device)
+
+
+def _device_ok(d) -> bool:
+    return d in ("cpu", "cuda") or (isinstance(d, str)
+                                    and d.startswith("cuda:")
+                                    and d[5:].isdigit())
 
 
 def engine_cores(engine) -> List[object]:

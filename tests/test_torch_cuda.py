@@ -3,7 +3,8 @@ small shapes (the paged kernel in both its modes, its split-K across
 contexts that cross split boundaries and its batch invariance, the bf16
 tensor-core flash kernel, ``kv_copy`` on pool and scale rows),
 ``quant_store_tokens`` on the card against the CPU, the paged runner
-on the card against itself on the CPU, bf16 and int8 KV, the dense
+on the card against itself on the CPU, bf16 and int8 KV (also
+tensor-parallel, its shards stacked on the card), the dense
 executor likewise on models with sliding windows, MoE and SSM layers,
 flash at head_dim 256, launches from a thread that set no CUDA device,
 and the training path's flash ``autograd.Function`` (kernel forward,
@@ -352,6 +353,63 @@ def test_runner_on_the_card_matches_the_cpu(gen, kv_dtype):
         streams[device] = {r.req_id: list(r.generated_ids)
                            for r in eng.core.submitted}
     assert streams["cuda"] == streams["cpu"]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("tp,heads", [(2, (8, 4)), (4, (8, 4)),
+                                      (4, (4, 2))],
+                         ids=["tp2", "tp4", "tp4-fallback"])
+def test_tp_runner_on_the_card_matches_the_cpu(gen, kv_dtype, tp, heads):
+    """The tensor-parallel runner with its shards stacked on the card (the
+    kernels at each shard's heads, the all-reduce on the card) under
+    rotation and the prefix cache emits the token streams it emits on the
+    CPU's shards and the single-device runner emits, from the same
+    weights; with 2 kv heads tp=4 is the replicated-attention fallback."""
+    import repro_torch.configs as tcfg
+    from repro_torch.core.types import Request
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_runner import PagedModelRunner
+    cfg = dataclasses.replace(tcfg.get_config("llama3-8b").reduced(),
+                              dtype="float32", num_heads=heads[0],
+                              num_kv_heads=heads[1], head_dim=16)
+    params = init_params(cfg, torch.Generator().manual_seed(42), "cpu",
+                         torch.float32)
+    rng = np.random.default_rng(3)
+    pref = [int(x) for x in rng.integers(1, cfg.vocab_size, 12)]
+    reqs = [dict(req_id=i, arrival_time=0.02 * i,
+                 ids=pref + [int(x) for x in rng.integers(
+                     1, cfg.vocab_size, int(rng.integers(8, 16)))],
+                 out=int(rng.integers(10, 16))) for i in range(5)]
+    streams = {}
+    for name, n, device in (("card tp=1", 1, "cuda"),
+                            ("cpu", tp, "cpu"),
+                            ("card", tp, ["cuda"] * tp)):
+        sv = tcfg.ServingConfig(num_hbm_blocks=16, num_dram_blocks=512,
+                                block_size=4, max_model_len=64,
+                                prefill_chunk=8, paged_runner=True,
+                                prefix_cache=True, kv_dtype=kv_dtype, tp=n)
+        p = params if n > 1 else {
+            "layers": [{k: v.to(device) for k, v in layer.items()}
+                       for layer in params["layers"]],
+            "head": {k: v.to(device) for k, v in params["head"].items()}}
+        runner = PagedModelRunner(cfg, sv, tcfg.GH200, params=p,
+                                  device=device)
+        eng = ServingEngine(cfg, sv, tcfg.GH200, executor=runner)
+        ptrs = [pool.data_ptr() for pool in runner.store.pools]
+        for r in reqs:
+            eng.add_request(Request(req_id=r["req_id"],
+                                    arrival_time=r["arrival_time"],
+                                    prompt_len=len(r["ids"]),
+                                    output_len=r["out"],
+                                    prompt_ids=r["ids"]))
+        eng.drain(max_time_s=500)
+        assert eng.stats.active_rotations + eng.stats.passive_preemptions
+        assert [pool.data_ptr() for pool in runner.store.pools] == ptrs
+        assert len(ptrs) == n
+        streams[name] = {r.req_id: list(r.generated_ids)
+                         for r in eng.core.submitted}
+    assert streams["card"] == streams["cpu"] == streams["card tp=1"]
 
 
 def test_kernels_launch_from_a_thread_that_set_no_device(gen):

@@ -42,8 +42,10 @@ def test_sim_report_row_equals_reference():
 
 @pytest.mark.parametrize("field,value", [("telemetry", True), ("tp", 2)])
 def test_unported_serving_options_raise(field, value):
-    """tp > 1 is not ported and raises. The flight recorder is ported
-    now: with telemetry on, the engine builds and carries its bus."""
+    """Both options are ported now (the name dates from when they
+    raised): with telemetry on, the engine builds and carries its bus;
+    with tp=2 it builds, and DuplexKV splits every row over two kv
+    shards, as the reference's does."""
     import dataclasses
     import repro_torch.configs as tc
     from repro_torch.serving.engine import ServingEngine
@@ -53,8 +55,9 @@ def test_unported_serving_options_raise(field, value):
         eng = ServingEngine(tc.get_config("qwen2.5-32b"), sv, tc.GH200)
         assert isinstance(eng.telemetry, TelemetryBus)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(tc.get_config("qwen2.5-32b"), sv, tc.GH200)
+    eng = ServingEngine(tc.get_config("qwen2.5-32b"), sv, tc.GH200)
+    assert eng.kv.kv_shards == 2
+    assert eng.kv.transfer_counters()["kv_shards"] == 2
 
 
 def test_real_executor_is_not_ported():

@@ -46,7 +46,8 @@ def test_new_modules_are_covered_and_import_no_jax():
     the dense executor and its LM (MoE, SSM, inputs included), the
     training stack (data, optimizer, train step, checkpoints, launcher) and
     the launch tooling (sharding rules, meshes, roofline, dry-run,
-    inspector, in-place audit) are among the files checked above, and
+    inspector, in-place audit) and tensor parallelism (the plan, the
+    host check) are among the files checked above, and
     importing
     all of them loads neither JAX nor the reference package (checked in a
     fresh interpreter)."""
@@ -68,7 +69,8 @@ def test_new_modules_are_covered_and_import_no_jax():
             "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
             "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
             "repro_torch.launch.inspect_hlo",
-            "repro_torch.launch.audit_donation"]
+            "repro_torch.launch.audit_donation",
+            "repro_torch.distributed.tp", "repro_torch.launch.hostenv"]
     covered = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES
                if ROOT / "src" in p.parents}
     for m in mods:
@@ -96,6 +98,11 @@ def test_runner_without_device_needs_cuda():
             PagedModelRunner(cfg, sv)
         with pytest.raises(RuntimeError, match="CUDA"):
             PagedModelRunner(cfg, sv, device="cuda")
+        # tensor-parallel: no shard falls back to the CPU either
+        sv2 = dataclasses.replace(sv, tp=2)
+        for dev in (None, "cuda", ["cuda:0", "cuda:0"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                PagedModelRunner(cfg, sv2, device=dev)
 
 
 def test_server_and_dense_executor_without_device_need_cuda():

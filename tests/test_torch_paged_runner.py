@@ -232,5 +232,13 @@ def test_runner_refuses_unported_and_unsupported():
     int8 = TPagedModelRunner(TCFG, sv8, device="cpu")
     int8.bind(DuplexKV(TCFG, sv8, tcfg.GH200))
     assert int8.store.quantized and int8.store.pool.dtype == torch.int8
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        TPagedModelRunner(TCFG, dataclasses.replace(sv, tp=2), device="cpu")
+    # tensor parallelism is ported: tp=2 builds on the CPU's two logical
+    # shards, binds, and holds a pool of Hkv/2 heads per shard
+    sv2 = dataclasses.replace(sv, tp=2)
+    tp2 = TPagedModelRunner(TCFG, sv2, device="cpu")
+    tp2.bind(DuplexKV(TCFG, sv2, tcfg.GH200))
+    assert tp2.tp_plan.shard_kv and len(tp2.store.pools) == 2
+    for pool in tp2.store.pools:
+        assert pool.shape[1:] == (TCFG.num_layers, 2, 4,
+                                  TCFG.num_kv_heads // 2, TCFG.head_dim)
+    assert tp2.store.pool_shard_bytes * 2 == tp2.store.pool_global_bytes

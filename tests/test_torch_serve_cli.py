@@ -3,8 +3,8 @@ reference's (``repro.launch.serve``), in process, with the same flags: the
 sim-mode JSON report is equal, exactly, for the golden flags alone and
 with the router, disaggregation and the int8 tier's byte budget; a
 flight-recorder run writes a Perfetto trace with the same events. Plus the
-launcher's refusals: ``--tp > 1``, and ``--paged-runner`` with no CUDA
-device and no ``--device cpu``."""
+launcher's refusals: a ``--tp`` that does not divide the kv heads, and
+``--paged-runner`` with no CUDA device and no ``--device cpu``."""
 import collections
 import json
 
@@ -72,8 +72,11 @@ def test_trace_out_equals_reference(tmp_path, capsys):
 
 
 def test_launcher_refusals():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tserve.main(["--tp", "2", "--rps", "1", "--duration", "1"])
+    # --tp is ported: a degree the default config (qwen2.5-32b, Hkv=8)
+    # cannot shard raises the reference's error naming the field
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        tserve.main(["--tp", "3", "--device", "cpu", "--rps", "1",
+                     "--duration", "1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.main(["--paged-runner", "--rps", "1", "--duration", "1"])

@@ -180,11 +180,11 @@ def test_config_device_tp_and_keys():
     assert cfg.to_dict()["device"] == "cpu"
     assert {k: v for k, v in cfg.to_dict().items() if k != "device"} == \
         rserver.ServerConfig.from_dict({"port": 0, "replicas": 2}).to_dict()
-    # tp > 1 validates as in the reference but does not build
+    # tp > 1 validates as in the reference and builds: one replica whose
+    # DuplexKV splits every row over two kv shards
     cfg = tserver.ServerConfig(tp=2, device="cpu")
     assert cfg.validate() is cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        cfg.build_engine()
+    assert cfg.build_engine().kv.kv_shards == 2
 
 
 # ---------------------------------------------------------------- endpoints

@@ -104,7 +104,10 @@ def test_shard_applies_in_ctx():
 
 def test_shard_over_a_mesh_waits_for_tensor_parallelism():
     """A larger mesh passes meta tensors (the dry-run) and refuses real
-    ones: placing them is tensor parallelism (ROADMAP item 3)."""
+    ones: ``shard()`` on real tensors is the part of tensor parallelism
+    still to come (ROADMAP item 3). The serving TP mesh is ported:
+    ``make_tp_mesh`` gives CPU shards, and without the cards asks for
+    them or for an explicit device list."""
     with sh.sharding_ctx(mesh(), sh.TRAIN_RULES):
         m = torch.empty(8, 4, device="meta")
         assert sh.shard(m, ("batch", None)) is m
@@ -113,8 +116,10 @@ def test_shard_over_a_mesh_waits_for_tensor_parallelism():
         ns = sh.named_sharding(("batch", "heads"), (8, 4))
         assert ns == sh.NamedSharding(mesh(), ("data", "model"))
     assert sh.named_sharding(("batch",), (8,)) is None
-    with pytest.raises(NotImplementedError, match="item 3"):
-        make_tp_mesh(2)
+    assert make_tp_mesh(2, "cpu").devices == (torch.device("cpu"),) * 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="explicit list of 2"):
+            make_tp_mesh(2)
 
 
 def test_batch_axes():
