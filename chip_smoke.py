@@ -107,7 +107,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    replicated-attention fallback (2 kv heads) at tp 4 and the int8 tier
    at tp 2: streams equal tp=1's on the card and the CPU's; the int8
    shards' scales against tp=1's. (c) (b) over two cards, only where the
-   machine has them.
+   machine has them;
+15. training on a mesh (target 90 s; cell S10): (a) gemma3-1b at full
+   width and depth through the launcher with ``--mesh 2,2 --device
+   cuda:0,cuda:0,cuda:0,cuda:0`` (four shards stacked on the card),
+   phase 12's seeded weights and data, 4 x 1024 in 2 microbatches, int8
+   moments, remat, 3 steps: losses within 2e-2 of phase 12's first 3,
+   flash launched once a shard a layer forward and once in recompute;
+   then the same step through ``make_train_step(mesh=)``: the params and
+   moments each position holds equal ``dryrun.tree_bytes_per_device`` to
+   the byte; wall per step, tokens/s, peak memory, one traced step's busy
+   share by family, collective bytes per position and the roofline's
+   compute, memory and collective terms. (b) qwen3-moe-30b-a3b at full
+   width, 4 of its 48 layers, bf16 weights from a seeded generator, int8
+   moments, 2 x 512: with no mesh, on (1, 2) stacked (64 experts a shard:
+   losses within 2e-2 of no mesh's), then on (2, 2) (finite losses, the
+   dropped assignments per data shard). (c) the reduced llama3-8b and
+   qwen3-moe in fp32 on (2, 2) stacked against the same on the CPU (loss
+   within 1e-5 relative, params after 2 steps within atol 1e-5, rtol
+   1e-4), and a checkpoint saved on (2, 2) restored on (1, 2) and with no
+   mesh to equal leaves. (d) (a) over four cards, only where the machine
+   has them (``scripts/mesh_cards.py`` runs it there). Phase 3 also checks
+   flash at this phase's shard heads (gemma3-1b (2, 1, 256), qwen3-moe
+   (16, 2, 128)) and ``FlashAttention``'s gradient at (2, 1, 256).
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -396,6 +418,51 @@ def tp_shard_checks(torch, ops, ref, cfg, errs, dev="cuda"):
             check("flash_attention", dname, f"{what}, T=512 Skv=1024 "
                   f"q_offset=512", got, want, tol, errs)
         del qpool, scales
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_shard_checks(torch, ops, ref, errs, dev="cuda"):
+    """Flash at phase 15's shard heads against its plain version: a (2, 2)
+    mesh's shard of gemma3-1b (2/1/256, causal, window 512) and a (1, 2)
+    mesh's of qwen3-moe-30b-a3b (16/2/128, causal), 1024 tokens a row, in
+    bf16 and fp32; and ``FlashAttention``'s gradient (the kernel forward,
+    the plain backward) at gemma3-1b's shard heads against autograd
+    through the plain version in fp32 (on the same inputs, upcast)."""
+    from repro_torch.models.attention import FlashAttention
+    g = torch.Generator(device=dev).manual_seed(15)
+    S = 1024
+    for label, H, Hkv, D, win in (("gemma3-1b (2, 2) shard", 2, 1, 256,
+                                   512),
+                                  ("qwen3-moe (1, 2) shard", 16, 2, 128, 0)):
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q = torch.randn((2, S, H, D), generator=g, device=dev).to(dt)
+            k = torch.randn((2, S, Hkv, D), generator=g, device=dev).to(dt)
+            v = torch.randn((2, S, Hkv, D), generator=g, device=dev).to(dt)
+            got = ops.flash_attention(q, k, v, causal=True, window=win,
+                                      force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=True, window=win)
+            torch.cuda.synchronize()
+            check("flash_attention", dname, f"{label} H/Hkv/D={H}/{Hkv}/{D},"
+                  f" B=2 T={S} causal window {win}", got, want, TOL[dname],
+                  errs)
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        q, k, v = (torch.randn((1, S, h, 256), generator=g, device=dev).to(
+            dt) for h in (2, 1, 1))
+        dout = torch.randn((1, S, 2, 256), generator=g, device=dev).to(dt)
+        grads = []
+        for fn, up in ((lambda a, b, c: FlashAttention.apply(
+                a, b, c, True, 512, 0, None), dt),
+                (lambda a, b, c: ref.flash_attention_ref(
+                    a, b, c, causal=True, window=512), torch.float32)):
+            live = [x.detach().to(up).requires_grad_() for x in (q, k, v)]
+            grads.append(torch.autograd.grad(fn(*live), live, dout.to(up)))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), *grads):
+            check("flash_attention", dname, f"FlashAttention gradient {name}"
+                  f" at gemma3-1b's (2, 2) shard heads 2/1/256, T={S}, "
+                  f"window 512, against autograd through the plain version",
+                  a, b, TOL[dname], errs)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1527,7 +1594,8 @@ def train_phase(torch):
     the reference example's geometry (``examples/torch/train_100m.py``),
     whose loss must fall; (c) the reduced gemma3-1b in fp32: loss and every
     gradient on the card (the flash kernel forward) against the CPU's.
-    Returns the kernel launches of (a) and its resume."""
+    Returns the kernel launches of (a) and its resume, and (a)'s losses
+    and ``checkpoint_sums`` of its state at step 3."""
     import importlib.util
     import shutil
     from repro_torch.configs import ShapeConfig, get_config
@@ -1557,6 +1625,7 @@ def train_phase(torch):
         wall = time.perf_counter() - t0
         flash = ops.launch_counts()["flash_attention"]
         peak = torch.cuda.max_memory_allocated()
+        sums3 = checkpoint_sums(torch, Path(ck) / "step_00000003", "cuda")
         shutil.rmtree(Path(ck) / f"step_{steps:08d}")
         t0 = time.perf_counter()
         resumed = train_main(args + ["--resume"])
@@ -1693,7 +1762,7 @@ def train_phase(torch):
         raise AssertionError("train fp32: the card's loss or gradients "
                              "differ from the CPU's")
     log(f"phase 12 wall: {time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return launches, (losses, sums3)
 
 
 # --------------------------------------------------------------- phase 13
@@ -2090,6 +2159,392 @@ def tp_phase(torch, cfg, prompts, full):
     return launches
 
 
+# --------------------------------------------------------------- phase 15
+
+MESH_STACK = ["cuda:0"] * 4
+# gemma3-1b's bf16 losses on a mesh against one card's: they read
+# 1.717e-05 apart (the partials add in another order); a forward on half
+# the batch or a wrong mask count reads further off
+MESH_TOL = 1e-3
+# the same run's state after its steps against one card's, leaf by leaf:
+# the largest relative gap of the sums of |x|. The losses cannot tell a
+# step that leaves the state as it was (at the warm-up's learning rate the
+# bf16 weights barely move in 3 steps); its zero moments read 1 here (the
+# frozen-update control, measured in each run), a sound mesh step
+# 1.376e-02 stacked and 1.304e-02 over four cards (bf16 gradients added in
+# another order move a small leaf's int8 scale by about 1%)
+STATE_TOL = 0.1
+# qwen3-moe's bf16 losses on (1, 2) against no mesh: 7.969e-03 apart
+# (1.214e-02 on an earlier tree): the partials add in another order and
+# flip routing at near ties (18,104 dropped assignments against 18,153),
+# while two runs with no mesh read 0 apart (printed beside it in each run)
+MOE_MESH_TOL = 2e-2
+
+
+def checkpoint_sums(torch, directory, dev):
+    """Each leaf's sum of |x| in fp64, on ``dev``, of a checkpoint
+    directory of the port's format, read leaf by leaf."""
+    manifest = json.loads((directory / "manifest.json").read_text())
+    out = []
+    for meta in manifest["leaves"]:
+        arr = np.load(directory / f"leaf_{meta['i']}.npy")
+        t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+             if meta["dtype"] == "bfloat16" else torch.from_numpy(arr))
+        out.append(float(t.to(dev).double().abs().sum()))
+    return out
+
+
+def state_sums(torch, state):
+    """``checkpoint_sums`` of a train state held in memory (whole or
+    laid over a mesh), leaf by leaf in the checkpoint's order."""
+    from repro_torch.distributed import spmd
+    from repro_torch.tree import flatten
+    return [float((spmd.gather(x) if spmd.is_placed(x) else x)
+                  .double().abs().sum()) for x in flatten(state)[0]]
+
+
+def state_gap(got, want):
+    """The largest relative gap between two lists of per-leaf sums."""
+    return max(abs(a - b) / max(abs(b), 1e-30)
+               for a, b in zip(got, want, strict=True))
+
+
+def launch_with_state(torch, args, dev):
+    """The launcher run with ``args`` and a checkpoint at its end: its
+    losses and ``checkpoint_sums`` of its last state."""
+    from repro_torch.launch.train import main as train_main
+    with tempfile.TemporaryDirectory() as ck:
+        losses = train_main(args + ["--ckpt-dir", ck])
+        last = max(Path(ck).glob("step_*"))
+        return losses, checkpoint_sums(torch, last, dev)
+
+
+def route_drops(torch, moe):
+    """A wrapper of ``moe.route`` and the list it appends each call's
+    dropped assignments to (a device count, read at the end)."""
+    seen = []
+    route = moe.route
+
+    def counting(*a, **kw):
+        r = route(*a, **kw)
+        seen.append((~r.keep).sum())
+        return r
+    return counting, seen
+
+
+def mesh_step_profile(torch, step_fn, state, batches, mesh, label):
+    """A warm-up step, two timed steps (mean wall, ending in a
+    synchronize) and one traced step: (state, step seconds, traced
+    seconds, device ms by family, collective bytes of the traced step
+    by position)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import spmd
+    state, _ = step_fn(state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:3]:
+        state, m = step_fn(state, b)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    spmd.reset_collective_bytes()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[3])
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    coll = [spmd.collective_bytes(r) for r in range(mesh.size)]
+    fams = device_time_by_family(prof)
+    busy = sum(fams.values())
+    log(f"{label}: wall {step_s * 1e3:.1f} ms a step (mean of 2 after a "
+        f"warm-up); traced step wall {traced_s * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / (traced_s * 1e3):.3f} of wall), by family "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                    sorted(fams.items(), key=lambda kv: -kv[1])))
+    return state, step_s, traced_s, fams, coll
+
+
+def mesh_phase(torch, train_losses, train_sums, dev="cuda"):
+    """Training on a (data, model) mesh (cell S10): (a) gemma3-1b at full
+    width through the launcher on (2, 2) stacked on the card, against
+    phase 12's losses and state at step 3 (``train_sums``), then the same
+    step through ``make_train_step``: the frozen-update control, the
+    bytes a position holds against the dry-run, wall, busy share,
+    collective bytes and the roofline's terms; (b) qwen3-moe-30b-a3b at
+    full width, 4 layers, with no mesh (twice), on (1, 2) and on (2, 2);
+    (c) the reduced llama3-8b and qwen3-moe in fp32 on the card against
+    the CPU, and a checkpoint across meshes; (d) (a) across four cards
+    where the machine has them. Returns the phase's kernel launches.
+    ``dev`` other than "cuda" runs the phase there (a dry run of its
+    logic; (d) where torch reports four cards)."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import SyntheticPacked
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import TRAIN_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import init_lm_params, params_to
+    from repro_torch.optimizer import adamw
+    from repro_torch.optimizer.adamw import AdamWConfig
+    from repro_torch.tree import flatten
+    from repro_torch.training import step as steplib
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    axes = ("data", "model")
+    stack = MESH_STACK if dev == "cuda" else [dev] * 4
+    cfg = get_config("gemma3-1b")
+    B, S, MB, steps = 4, 1024, 2, 3
+    ops.reset_launch_counts()
+
+    # (a) through the launcher, as a user runs it
+    args = ["--arch", "gemma3-1b", "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--microbatches", str(MB), "--moments-dtype",
+            "int8", "--log-every", "1", "--mesh", "2,2", "--device",
+            ",".join(stack)]
+    torch.cuda.reset_peak_memory_stats()
+    spmd.reset_collective_bytes()
+    t0 = time.perf_counter()
+    losses, sums = launch_with_state(torch, args, dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    flash = ops.launch_counts()["flash_attention"]
+    fwd = steps * MB * cfg.num_attn_layers * 4
+    gap = max(abs(a - b) for a, b in zip(losses, train_losses[:steps]))
+    sgap = state_gap(sums, train_sums)
+    log(f"mesh (a) gemma3-1b full width on a (2, 2) mesh stacked on "
+        f"cuda:0 (4 shards), {B} x {S} in {MB} microbatches, int8 moments, "
+        f"remat: losses {losses} against phase 12's "
+        f"{train_losses[:steps]}: max |gap| {gap:.3e} (tolerance "
+        f"{MESH_TOL}); its state after {steps} steps against phase 12's: "
+        f"largest relative gap of a leaf's sum of |x| {sgap:.3e} "
+        f"(tolerance {STATE_TOL}); {wall:.2f} s for {steps} steps and a "
+        f"checkpoint (weights drawn and placed at start); peak device "
+        f"memory {peak} B; flash launches "
+        f"{flash}: forward {fwd} (steps x microbatches x "
+        f"{cfg.num_attn_layers} attention layers x 4 shards) + recompute "
+        f"{flash - fwd}; collective bytes per position (max) "
+        f"{spmd.collective_bytes()}")
+    if not all(np.isfinite(losses)) or gap > MESH_TOL:
+        raise AssertionError(f"mesh (a): losses {losses} vs {train_losses}")
+    if sgap > STATE_TOL:
+        raise AssertionError(f"mesh (a): state gap {sgap} to phase 12's")
+    if flash != 2 * fwd:
+        raise AssertionError(f"mesh (a): flash launched {flash} times, "
+                             f"expected {fwd} forward + {fwd} recompute")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same step through make_train_step: bytes, walls, a trace
+    mesh = make_mesh((2, 2), axes, stack)
+    lm = LM(cfg)
+    opt = AdamWConfig(moments_dtype="int8")
+    state = steplib.init_train_state(
+        lm, torch.Generator(device=dev).manual_seed(0), opt, stack[0],
+        mesh=mesh)
+    # the frozen-update control: the state a step that changes nothing
+    # leaves (the one just drawn) against phase 12's at step 3
+    frozen = state_gap(state_sums(torch, state), train_sums)
+    log(f"mesh (a) frozen-update control: the drawn state against phase "
+        f"12's at step {steps}: largest relative gap {frozen:.3e} (must "
+        f"exceed the tolerance {STATE_TOL}; the mesh run's {sgap:.3e})")
+    if not frozen > STATE_TOL:
+        raise AssertionError(f"mesh (a): an unchanged state reads within "
+                             f"{STATE_TOL} of phase 12's")
+    structs = steplib.train_state_structs(lm, opt)
+    st_axes = steplib.train_state_logical_axes(lm, opt)
+    held = {}
+    for part in ("params", "opt"):
+        want = dryrun.tree_bytes_per_device(getattr(structs, part),
+                                            getattr(st_axes, part), mesh,
+                                            TRAIN_RULES)
+        held[part] = spmd.bytes_per_position(getattr(state, part))
+        if held[part] != [want] * mesh.size:
+            raise AssertionError(f"mesh (a): {part} bytes a position "
+                                 f"{held[part]} != dry-run's {want}")
+    log(f"mesh (a) bytes a position holds (= dryrun.tree_bytes_per_device "
+        f"for gemma3-1b, (2, 2), TRAIN_RULES, int8 moments): params "
+        f"{held['params'][0]} B, moments {held['opt'][0]} B; whole params "
+        f"{sum(int(np.prod(s.shape)) * 2 for s in flatten(structs.params)[0])}"
+        f" B")
+    step_fn = steplib.make_train_step(lm, opt, microbatches=MB, mesh=mesh)
+    data = SyntheticPacked(cfg.vocab_size, S, B)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                next(data).items()} for _ in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    state, step_s, traced_s, fams, coll = mesh_step_profile(
+        torch, step_fn, state, batches, mesh, "mesh (a) step, gemma3-1b on "
+        "(2, 2) stacked")
+    peak_step = torch.cuda.max_memory_allocated()
+    shape = ShapeConfig("t", S, B, "train")
+    coll_dev = max(sum(c.values()) for c in coll)
+    mem = roofline.analytic_memory_bytes(
+        cfg, shape, weights_local=held["params"][0],
+        opt_local=held["opt"][0], cache_local=0.0, data_shards=2,
+        model_shards=2, fsdp_shards=2, microbatches=MB)
+    terms = roofline.roofline_terms(roofline.model_flops(cfg, shape) / 4,
+                                    mem["total"], coll_dev)
+    log(f"mesh (a) step: {B * S / step_s:.1f} tokens/s; peak device memory "
+        f"over the steps {peak_step} B; collective bytes of the traced "
+        f"step, position 0: {coll[0]} (max over positions {coll_dev} B); "
+        f"roofline a position (H100 SXM peaks; the 4 positions share one "
+        f"card here): compute {terms['compute_s'] * 1e3:.3f} ms (model "
+        f"FLOPs / 4), memory {terms['memory_s'] * 1e3:.3f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.3f} ms at "
+        f"{roofline.H100_SXM.link_bw:.3e} B/s; bound "
+        f"{terms['step_s_lower_bound'] * 1e3:.3f} ms ({terms['bottleneck']})"
+        f" against {step_s * 1e3:.1f} ms of wall")
+    del state, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) qwen3-moe-30b-a3b at full width, 4 of 48 layers
+    qcfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=4)
+    qlm = LM(qcfg)
+    qopt = AdamWConfig(moments_dtype="int8")
+    qdata = SyntheticPacked(qcfg.vocab_size, 512, 2)
+    qbatches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                 next(qdata).items()} for _ in range(2)]
+    qlosses = {}
+    # no mesh twice: how far two runs of the same step read apart
+    for run, shape_m in enumerate((None, None, (1, 2), (2, 2))):
+        qmesh = (make_mesh(shape_m, axes, stack[:int(np.prod(shape_m))])
+                 if shape_m else None)
+        t0 = time.perf_counter()
+        qstate = steplib.init_train_state(
+            qlm, torch.Generator(device=dev).manual_seed(0), qopt, stack[0],
+            mesh=qmesh)
+        fn = steplib.make_train_step(qlm, qopt, mesh=qmesh)
+        out = []
+        for b in qbatches:
+            qstate, m = fn(qstate, b)
+            out.append(float(m["loss"]))
+        qlosses[run] = out
+        counting, seen = route_drops(torch, moe)
+        orig, moe.route = moe.route, counting
+        try:
+            with torch.no_grad():
+                qlm.train_loss(qstate.params, qbatches[0], remat=False,
+                               mesh=qmesh)
+        finally:
+            moe.route = orig
+        held_b = (spmd.bytes_per_position(qstate.params) if qmesh
+                  else [sum(t.numel() * t.element_size()
+                            for t in flatten(qstate.params)[0])])
+        n = qmesh.size if qmesh else 1
+        drops = [int(x) for x in seen]
+        per_data = {}
+        for i, dcount in enumerate(drops):
+            r = i % n
+            di = qmesh.axis_index(r, "data") if qmesh else 0
+            if qmesh is None or qmesh.axis_index(r, "model") == 0:
+                per_data[di] = per_data.get(di, 0) + dcount
+        log(f"mesh (b) qwen3-moe-30b-a3b at full width ({qcfg.num_layers} "
+            f"of 48 layers, {qcfg.moe.num_experts} experts, top-"
+            f"{qcfg.moe.top_k}), 2 x 512, int8 moments, mesh {shape_m}: "
+            f"losses {out}; params a position {held_b[0]} B; dropped "
+            f"assignments per data shard over the {qcfg.num_layers} layers "
+            f"of one forward {per_data}; {time.perf_counter() - t0:.2f} s")
+        if not all(np.isfinite(out)):
+            raise AssertionError(f"mesh (b): non-finite losses {out}")
+        del qstate, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    qspread = max(abs(a - b) for a, b in zip(qlosses[1], qlosses[0]))
+    qgap = max(abs(a - b) for a, b in zip(qlosses[2], qlosses[0]))
+    log(f"mesh (b) (1, 2) against no mesh: max |gap| {qgap:.3e} (tolerance "
+        f"{MOE_MESH_TOL}; one data shard: the same capacity); two runs "
+        f"with no mesh: max |gap| {qspread:.3e}; (2, 2) against no mesh: "
+        f"{qlosses[3]} vs {qlosses[0]} (each data shard's own capacity)")
+    if qgap > MOE_MESH_TOL or qspread > MOE_MESH_TOL:
+        raise AssertionError(f"mesh (b): {qlosses}")
+    del qbatches
+
+    # (c) the reduced configs in fp32 on the card against the CPU
+    for arch in ("llama3-8b", "qwen3-moe-30b-a3b"):
+        rcfg = dataclasses.replace(get_config(arch).reduced(),
+                                   dtype="float32")
+        rlm = LM(rcfg)
+        ropt = AdamWConfig(warmup_steps=1)
+        cpu_params = init_lm_params(rcfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        rdata = SyntheticPacked(rcfg.vocab_size, 32, 4)
+        rbatches = [{k: torch.from_numpy(v) for k, v in next(rdata).items()}
+                    for _ in range(2)]
+        res = {}
+        for where in ("card", "cpu"):
+            rmesh = make_mesh((2, 2), axes,
+                              stack if where == "card" else "cpu")
+            rdev = rmesh.devices[0]
+            params = params_to(cpu_params, rdev)
+            state = steplib.place_state(rlm, ropt, steplib.TrainState(
+                params, adamw.init_state(params, ropt)), rmesh)
+            fn = steplib.make_train_step(rlm, ropt, microbatches=2,
+                                         mesh=rmesh)
+            ls = []
+            for b in rbatches:
+                state, m = fn(state, {k: v.to(rdev) for k, v in b.items()})
+                ls.append(float(m["loss"]))
+            res[where] = (ls, state)
+        (lc, sc), (lp, sp) = res["card"], res["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        pc = [spmd.gather(x).cpu() for x in flatten(sc.params)[0]]
+        pp = [spmd.gather(x) for x in flatten(sp.params)[0]]
+        worst = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                    for a, b in zip(pc, pp))
+        log(f"mesh (c) {rcfg.name} fp32 on (2, 2), card vs CPU: losses {lc} "
+            f"vs {lp} (max relative {rel:.2e}, tolerance 1e-5); params after "
+            f"2 steps: max of |card - cpu| - 1e-4 |cpu| {worst:.2e} "
+            f"(tolerance 1e-5)")
+        if rel > 1e-5 or worst > 1e-5:
+            raise AssertionError(f"mesh (c): {rcfg.name} card != CPU")
+        with tempfile.TemporaryDirectory() as ck:
+            mgr = CheckpointManager(ck)
+            mgr.save(2, sc)
+            want = [spmd.gather(x).cpu() for x in flatten(sc)[0]]
+            other = make_mesh((1, 2), axes, stack[:2])
+            on_other = mgr.restore(2, steplib.train_state_logical_axes(
+                rlm, ropt), mesh=other)
+            plain = mgr.restore(2, sp, device=stack[0])
+            for w, a, b in zip(want, flatten(on_other)[0],
+                               flatten(plain)[0], strict=True):
+                if not (torch.equal(spmd.gather(a).cpu(), w)
+                        and torch.equal(b.cpu(), w)):
+                    raise AssertionError("mesh (c): a restored leaf differs")
+        log(f"mesh (c) {rcfg.name}: the checkpoint saved on (2, 2) restores "
+            f"on (1, 2) and with no mesh to equal leaves "
+            f"({len(want)} leaves)")
+        del res, sc, sp
+    launches = ops.launch_counts()
+
+    # (d) across four cards
+    if torch.cuda.device_count() >= 4:
+        t0 = time.perf_counter()
+        cards = ([f"cuda:{i}" for i in range(4)] if dev == "cuda"
+                 else [dev] * 4)
+        spread, dsums = launch_with_state(
+            torch, args[:-1] + [",".join(cards)], dev)
+        dgap = max(abs(a - b) for a, b in zip(spread, train_losses[:steps]))
+        dsgap = state_gap(dsums, train_sums)
+        log(f"mesh (d) (a) over {cards}: losses {spread}, max |gap| to "
+            f"phase 12's {dgap:.3e} (tolerance {MESH_TOL}); state against "
+            f"phase 12's {dsgap:.3e} (tolerance {STATE_TOL}); "
+            f"{time.perf_counter() - t0:.2f} s")
+        if dgap > MESH_TOL or dsgap > STATE_TOL:
+            raise AssertionError(f"mesh (d): {spread} vs {train_losses}")
+    else:
+        log(f"mesh (d) not run: it needs four cards, torch sees "
+            f"{torch.cuda.device_count()} (scripts/mesh_cards.py runs (a) "
+            f"over four)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main(argv) -> int:
     if argv not in ([], ["--timing"]):
         log("usage: chip_smoke.py [--timing]")
@@ -2133,6 +2588,7 @@ def main(argv) -> int:
     kernel_checks(torch, ops, ref, cfg, errs)
     int8_checks(torch, ops, ref, quant, cfg, errs)
     tp_shard_checks(torch, ops, ref, cfg, errs)
+    mesh_shard_checks(torch, ops, ref, errs)
 
     # 4. timing
     times = kernel_timing(torch, ops, ref, quant, cfg)
@@ -2225,7 +2681,7 @@ def main(argv) -> int:
     log(f"families path kernel launches: {launches['families']}")
 
     # 12. training at full width through the launcher
-    launches["train"] = train_phase(torch)
+    launches["train"], train_ref = train_phase(torch)
     log(f"train path kernel launches: {launches['train']}")
 
     # 13. the launch tooling: audit, roofline, inspector, dry-run
@@ -2234,6 +2690,9 @@ def main(argv) -> int:
     # 14. tensor parallelism: llama3-8b at tp=2 on the card, the reduced
     # matrix on the card against the CPU
     launches["tp"] = tp_phase(torch, cfg, prompts, full)
+
+    # 15. training on a (data, model) mesh, shards stacked on the card
+    launches["mesh"] = mesh_phase(torch, *train_ref)
 
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
@@ -2257,7 +2716,8 @@ def main(argv) -> int:
                                 ("11_families", launches["families"]),
                                 ("12_train", launches["train"]),
                                 ("13_tooling", launches["tooling"]),
-                                ("14_tp", launches["tp"]))})
+                                ("14_tp", launches["tp"]),
+                                ("15_mesh", launches["mesh"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

@@ -9,8 +9,10 @@ step use), named tuples (``TrainState``, ``AdamWState`` and the int8
 moments' ``Quantized``) included. Saves are atomic (``.tmp-{step}``, then a
 rename) and optionally asynchronous: the values are copied to the host
 before the writer thread starts, and one writer runs at a time. The last
-``keep`` checkpoints are retained. The reference restores onto any mesh;
-the port restores onto one device (meshes wait for ROADMAP.md §1 item 3).
+``keep`` checkpoints are retained. A state laid over a mesh
+(``spmd.Placed`` leaves) is saved whole, so its files are those of an
+unsharded run; ``restore`` lays it onto one device or onto any mesh (the
+reference's elastic-reshard hook).
 """
 from __future__ import annotations
 
@@ -25,12 +27,17 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import TRAIN_RULES, is_axes_leaf
 from repro_torch.tree import flatten
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
-    """A host copy of ``x`` as numpy; bf16 as its bit pattern in uint16."""
-    x = x.detach().to("cpu", copy=True)
+    """A host copy of ``x`` (whole, if placed over a mesh: its pieces
+    gathered straight into host memory) as numpy; bf16 as its bit pattern
+    in uint16."""
+    x = (spmd.gather(x, "cpu").detach() if spmd.is_placed(x)
+         else x.detach().to("cpu", copy=True))
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16)
     return x.numpy()
@@ -92,14 +99,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return max(steps) if steps else None
 
-    def restore(self, step: int, template: Any, device=None) -> Any:
+    def restore(self, step: int, template: Any, device=None, mesh=None,
+                rules=None) -> Any:
         """``template``: a tree of the saved structure (values unused); the
         leaves come back as tensors on ``device`` (CUDA unless the caller
-        names the CPU, as every entry point of the port)."""
-        device = resolve_device(device)
+        names the CPU, as every entry point of the port), or, with
+        ``mesh``, laid over it under ``rules`` (``TRAIN_RULES`` by default)
+        by each leaf's logical axes: the template's leaves are then
+        ``spmd.Placed`` (of any mesh) or ``(logical axes, shape)`` leaves
+        (``training.step.train_state_logical_axes``)."""
+        if mesh is None:
+            device = resolve_device(device)
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
-        leaves, rebuild = flatten(template)
+        leaves, rebuild = flatten(template, is_leaf=is_axes_leaf)
         if len(leaves) != len(manifest["leaves"]):
             raise ValueError(f"checkpoint has {len(manifest['leaves'])} "
                              f"leaves, template {len(leaves)}")
@@ -110,5 +123,17 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            out.append(t.to(device))
+            if mesh is None:
+                out.append(t.to(device))
+                continue
+            leaf = leaves[i]
+            if spmd.is_placed(leaf):
+                axes = leaf.axes
+            elif is_axes_leaf(leaf):
+                axes = leaf[0]
+            else:
+                raise ValueError(f"leaf {i}: restoring onto a mesh needs "
+                                 f"its logical axes (a Placed or an axes "
+                                 f"leaf in the template)")
+            out.append(spmd.place(t, axes, mesh, rules or TRAIN_RULES))
         return rebuild(out)

@@ -6,13 +6,16 @@ axis names (``models/params.py``, ``LM.cache_specs``, the optimizer's
 to mesh axes, and :func:`pspec_for` turns one tensor's names into a
 partition spec: one entry per dim (a mesh axis name, a tuple of them, or
 None), trailing Nones dropped, as ``jax.sharding.PartitionSpec`` holds it.
-A mesh is a :class:`Mesh`, its axis names and sizes: the dry-run reads
-per-device bytes from it on ``torch.device("meta")`` without any device.
+A mesh is a :class:`Mesh`, its axis names and sizes, and optionally
+the torch device of each position in row-major order
+(``launch.mesh.make_mesh``): the dry-run reads per-device bytes from a
+mesh without devices on ``torch.device("meta")``; training places
+tensors on a mesh with devices (``distributed/spmd.py``).
 
-Placing real tensors over more than one device is tensor parallelism,
-which is not ported yet (ROADMAP.md §1 item 3): :func:`shard` passes a
-tensor through with no mesh, a one-device mesh or a meta tensor, and
-raises ``NotImplementedError`` otherwise.
+:func:`shard` is the reference's ``with_sharding_constraint``, which
+never changes a value: it returns the tensor. Placing a tensor's pieces
+is ``spmd.place``'s job, and the model's mesh path computes on the pieces
+(``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -25,15 +28,14 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 MeshAxes = Union[None, str, Tuple[str, ...]]
 PSpec = Tuple[MeshAxes, ...]
 
-_TP_TODO = ("placing tensors over a mesh of more than one device is tensor "
-            "parallelism, not ported yet (ROADMAP.md §1 item 3)")
-
-
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A device mesh by its axis names and sizes, in order."""
+    """A device mesh by its axis names and sizes, in order; ``devices``
+    (one per position, row-major, repeats allowed) when it places real
+    tensors, None for a description such as the dry-run's."""
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
+    devices: Optional[Tuple[object, ...]] = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -44,6 +46,9 @@ class Mesh:
         if any(s < 1 for s in self.axis_sizes):
             raise ValueError(f"mesh axis sizes must be >= 1: "
                              f"{self.axis_sizes}")
+        if self.devices is not None and len(self.devices) != self.size:
+            raise ValueError(f"a mesh of {self.size} positions needs as "
+                             f"many devices, got {len(self.devices)}")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -52,6 +57,18 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.axis_sizes)
+
+    def coords(self, r: int) -> Dict[str, int]:
+        """Position ``r``'s index along each axis (row-major)."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names),
+                           reversed(self.axis_sizes)):
+            r, out[name] = divmod(r, n)
+        return out
+
+    def axis_index(self, r: int, axis: str) -> int:
+        """Position ``r``'s index along ``axis`` (0 if not an axis)."""
+        return self.coords(r).get(axis, 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,14 +212,10 @@ def shards_of(spec: PSpec, mesh: Mesh) -> int:
 
 
 def shard(x, logical_axes: Sequence[Optional[str]]):
-    """The sharding annotation under the active context: ``x`` itself with
-    no mesh, a one-device mesh or a meta tensor."""
-    mesh, rules = _CTX.mesh, _CTX.rules
-    if mesh is None or rules is None or mesh.size == 1:
-        return x
-    if getattr(x, "device", None) is not None and x.device.type == "meta":
-        return x
-    raise NotImplementedError(_TP_TODO)
+    """The sharding annotation: ``x`` itself. The reference's constraint
+    never changes a value; where a tensor's pieces lie is
+    ``spmd.place``'s."""
+    return x
 
 
 def named_sharding(logical_axes: Sequence[Optional[str]],

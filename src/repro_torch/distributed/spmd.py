@@ -1,0 +1,361 @@
+"""What GSPMD and ``shard_map`` did implicitly, for one controller over a
+mesh of torch devices.
+
+A mesh (``distributed.sharding.Mesh`` with ``devices``, from
+``launch.mesh.make_mesh``) is a grid of positions in row-major order, each
+on a torch device; devices may repeat, which is how shards stack on one
+card. A tensor laid over the mesh is a :class:`Placed`: one piece per
+position, cut by its partition spec (``sharding.pspec_for``), a dim over
+several mesh axes indexed major to minor as the spec lists them, as
+``jax.sharding.NamedSharding`` lays it. Positions that hold the same piece
+hold copies of it, each its own tensor.
+
+An activation over the mesh is a plain list with one tensor per position.
+The collectives take such a list and one mesh axis and work on each group
+of positions along that axis, in a fixed order on the group's first
+device: :func:`all_reduce` (the sum, then the sum on every member),
+:func:`all_reduce_max` (no gradient), and :func:`all_gather` along a dim.
+The first and the last are differentiable: the gradient of an all-reduce
+is an all-reduce of the members' gradients, and the gradient of an
+all-gather is a reduce-scatter of them, both through ``Tensor.to``. Every
+collective adds, for each member, the bytes of its result to the counter
+of its kind (the reference's result-shape convention: an all-reduce
+counts the whole tensor, an all-gather the gathered one, a reduce-scatter
+a member's piece); :func:`collective_bytes` reads them per position.
+"""
+from __future__ import annotations
+
+import collections
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.distributed.sharding import (Mesh, MeshAxes, PSpec,
+                                              ShardingRules, is_axes_leaf,
+                                              pspec_for)
+from repro_torch.tree import flatten, tree_leaves, tree_map
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+_BYTES: Dict[str, Dict[int, int]] = collections.defaultdict(
+    lambda: collections.defaultdict(int))
+
+
+def reset_collective_bytes() -> None:
+    _BYTES.clear()
+
+
+def collective_bytes(position: Optional[int] = None) -> Dict[str, int]:
+    """Bytes counted since the last reset, by kind: at ``position``, or
+    the most any position counted."""
+    out = {}
+    for kind in KINDS:
+        per = _BYTES.get(kind, {})
+        out[kind] = (per.get(position, 0) if position is not None
+                     else max(per.values(), default=0))
+    return out
+
+
+def _count(kind: str, members: Sequence[int], nbytes: int) -> None:
+    per = _BYTES[kind]
+    for r in members:
+        per[r] += nbytes
+
+
+# --------------------------------------------------------------------------
+# Pieces
+# --------------------------------------------------------------------------
+
+def _axes_of(part: MeshAxes) -> Tuple[str, ...]:
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def piece_index(spec: PSpec, mesh: Mesh, r: int) -> Tuple[int, ...]:
+    """Which piece position ``r`` holds: its index along each dim."""
+    coords = mesh.coords(r)
+    shape = mesh.shape
+    out = []
+    for part in spec:
+        i = 0
+        for a in _axes_of(part):
+            i = i * shape[a] + coords[a]
+        out.append(i)
+    return tuple(out)
+
+
+def pieces_per_dim(spec: PSpec, mesh: Mesh) -> Tuple[int, ...]:
+    shape = mesh.shape
+    return tuple(math.prod(shape[a] for a in _axes_of(p)) for p in spec)
+
+
+def _narrow(x: torch.Tensor, spec: PSpec, mesh: Mesh, r: int
+            ) -> torch.Tensor:
+    for d, (i, n) in enumerate(zip(piece_index(spec, mesh, r),
+                                   pieces_per_dim(spec, mesh))):
+        if n > 1:
+            step = x.shape[d] // n
+            x = x.narrow(d, i * step, step)
+    return x
+
+
+class Placed:
+    """A tensor of global ``shape`` over ``mesh``: ``pieces[r]`` on
+    ``mesh.devices[r]``, cut by ``spec``. ``axes`` are its logical axes,
+    kept so a checkpoint can be laid over another mesh."""
+    __slots__ = ("pieces", "spec", "shape", "mesh", "axes")
+
+    def __init__(self, pieces, spec: PSpec, shape, mesh: Mesh, axes=None):
+        self.pieces = list(pieces)
+        self.spec = tuple(spec)
+        self.shape = tuple(shape)
+        self.mesh = mesh
+        self.axes = axes
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    def like(self, pieces) -> "Placed":
+        """Other pieces laid out as these."""
+        return Placed(pieces, self.spec, self.shape, self.mesh, self.axes)
+
+    def holders(self) -> List[List[int]]:
+        """The positions holding each distinct piece, in order of their
+        first position; each list in position order."""
+        seen: Dict[Tuple[int, ...], List[int]] = {}
+        for r in range(self.mesh.size):
+            seen.setdefault(piece_index(self.spec, self.mesh, r),
+                            []).append(r)
+        return list(seen.values())
+
+    def nbytes(self, r: int) -> int:
+        p = self.pieces[r]
+        return p.numel() * p.element_size()
+
+    def __repr__(self):
+        return (f"Placed(shape={self.shape}, spec={self.spec}, "
+                f"dtype={self.dtype}, mesh={self.mesh.axis_sizes})")
+
+
+def is_placed(x) -> bool:
+    return isinstance(x, Placed)
+
+
+def _copy_to(x: torch.Tensor, device) -> torch.Tensor:
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    return out.copy_(x)
+
+
+def place(x: torch.Tensor, logical_axes, mesh: Mesh,
+          rules: ShardingRules) -> Placed:
+    """The whole tensor ``x`` as its pieces on ``mesh`` under ``rules``. A
+    dim its mesh axes do not divide stays whole (``pspec_for``)."""
+    axes = tuple(logical_axes or ())
+    return place_spec(x, pspec_for(axes, mesh, rules, tuple(x.shape)),
+                      mesh, axes)
+
+
+def place_spec(x: torch.Tensor, spec: PSpec, mesh: Mesh,
+               axes=None) -> Placed:
+    """The whole tensor ``x`` as its pieces on ``mesh``, cut by the
+    partition spec ``spec``: each position gets its own contiguous copy of
+    its piece. A dim that its pieces do not divide raises."""
+    if mesh.devices is None:
+        raise ValueError("placing tensors needs a mesh with devices "
+                         "(launch.mesh.make_mesh)")
+    for d, n in enumerate(pieces_per_dim(spec, mesh)):
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of size {x.shape[d]} is not "
+                             f"divisible by its {n} pieces")
+    pieces = [_copy_to(_narrow(x, spec, mesh, r), mesh.devices[r])
+              for r in range(mesh.size)]
+    return Placed(pieces, spec, x.shape, mesh, axes)
+
+
+def gather(x: Placed, device=None) -> torch.Tensor:
+    """The whole tensor from its pieces, on ``device`` (the mesh's first
+    device by default); not differentiable."""
+    mesh = x.mesh
+    device = device if device is not None else mesh.devices[0]
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    for members in x.holders():
+        r = members[0]
+        _narrow(out, x.spec, mesh, r).copy_(x.pieces[r])
+    return out
+
+
+def place_tree(tree, axes_tree, mesh: Mesh, rules: ShardingRules):
+    """``place`` over a tree of tensors whose logical axes are the
+    ``(axes, shape)`` leaves of ``axes_tree``."""
+    leaves, rebuild = flatten(tree)
+    axes = tree_leaves(axes_tree, is_leaf=is_axes_leaf)
+    if len(leaves) != len(axes):
+        raise ValueError(f"{len(leaves)} tensors but {len(axes)} axes leaves")
+    out = []
+    for x, (ax, shape) in zip(leaves, axes):
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"tensor shape {tuple(x.shape)} != axes shape "
+                             f"{shape}")
+        out.append(place(x, ax, mesh, rules))
+    return rebuild(out)
+
+
+def gather_tree(tree, device=None):
+    """Every ``Placed`` leaf of ``tree`` as its whole tensor."""
+    return tree_map(lambda x: gather(x, device) if is_placed(x) else x,
+                    tree)
+
+
+def bytes_per_position(tree) -> List[int]:
+    """Bytes of the pieces each position holds, over a tree's ``Placed``
+    leaves."""
+    leaves = [x for x in tree_leaves(tree) if is_placed(x)]
+    if not leaves:
+        return []
+    return [sum(x.nbytes(r) for x in leaves)
+            for r in range(leaves[0].mesh.size)]
+
+
+# --------------------------------------------------------------------------
+# Collectives over one mesh axis
+# --------------------------------------------------------------------------
+
+def groups(mesh: Mesh, axis: str) -> List[List[int]]:
+    """The positions along ``axis`` for each setting of the other axes,
+    each list in order of the axis index (one position each when the mesh
+    has no such axis)."""
+    if axis not in mesh.shape:
+        return [[r] for r in range(mesh.size)]
+    out: Dict[tuple, List[int]] = {}
+    for r in range(mesh.size):
+        c = mesh.coords(r)
+        key = tuple(v for k, v in c.items() if k != axis)
+        out.setdefault(key, []).append(r)
+    return list(out.values())
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class _ReduceToRoot(torch.autograd.Function):
+    """The members' sum in member order on the first one's device; its
+    gradient goes to every member (the backward half of an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, members, *parts):
+        ctx.devices = [p.device for p in parts]
+        ctx.members = members
+        root = parts[0].device
+        acc = parts[0] + parts[1].to(root)
+        for p in parts[2:]:
+            acc = acc + p.to(root)
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("all-reduce", ctx.members, _nbytes(g))
+        return (None, *[g.to(d) for d in ctx.devices])
+
+
+class _GatherToRoot(torch.autograd.Function):
+    """The members' pieces joined along ``dim`` in member order on the
+    first one's device; the gradient's pieces go back to their members
+    (the scatter half of a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, dim, members, *parts):
+        ctx.devices = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        ctx.dim, ctx.members = dim, members
+        root = parts[0].device
+        return torch.cat([p.to(root) for p in parts], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        chunks = torch.split(g, ctx.sizes, dim=ctx.dim)
+        _count("reduce-scatter", ctx.members, _nbytes(chunks[0]))
+        return (None, None, *[c.to(d) for c, d in zip(chunks, ctx.devices)])
+
+
+def all_reduce(xs: Sequence[torch.Tensor], mesh: Mesh,
+               axis: str) -> List[torch.Tensor]:
+    """Each position's tensor replaced by the sum over its group along
+    ``axis``, added in group order on the group's first device."""
+    out = list(xs)
+    for members in groups(mesh, axis):
+        if len(members) == 1:
+            continue
+        acc = _ReduceToRoot.apply(members, *[xs[r] for r in members])
+        _count("all-reduce", members, _nbytes(acc))
+        for r in members:
+            out[r] = acc.to(mesh.devices[r])
+    return out
+
+
+def all_reduce_max(xs: Sequence[torch.Tensor], mesh: Mesh,
+                   axis: str) -> List[torch.Tensor]:
+    """The elementwise max over each group along ``axis``; detached."""
+    out = [x.detach() for x in xs]
+    for members in groups(mesh, axis):
+        if len(members) == 1:
+            continue
+        root = out[members[0]].device
+        acc = out[members[0]]
+        for r in members[1:]:
+            acc = torch.maximum(acc, out[r].to(root))
+        _count("all-reduce", members, _nbytes(acc))
+        for r in members:
+            out[r] = acc.to(mesh.devices[r])
+    return out
+
+
+def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+               dim: int) -> List[torch.Tensor]:
+    """Each position's tensor replaced by its group's pieces along
+    ``axis`` joined on ``dim`` in group order."""
+    out = list(xs)
+    for members in groups(mesh, axis):
+        if len(members) == 1:
+            continue
+        full = _GatherToRoot.apply(dim, members, *[xs[r] for r in members])
+        _count("all-gather", members, _nbytes(full))
+        for r in members:
+            out[r] = full.to(mesh.devices[r])
+    return out
+
+
+def gathered_over(x: Placed, axis: str) -> List[torch.Tensor]:
+    """Each position's piece with the dims that ``axis`` shards gathered
+    (an FSDP weight just before its use); differentiable."""
+    xs = list(x.pieces)
+    for d, part in enumerate(x.spec):
+        axes = _axes_of(part)
+        if axis in axes:
+            if len(axes) > 1:
+                raise NotImplementedError(
+                    f"a dim sharded over {axes} together: only one mesh "
+                    f"axis a dim is gathered")
+            xs = all_gather(xs, mesh=x.mesh, axis=axis, dim=d)
+    return xs
+
+
+def sum_copies(x: Placed) -> Placed:
+    """Each distinct piece replaced on all its holders by the sum of their
+    pieces (partial gradients of a replicated leaf), added in position
+    order on the first holder's device: held once, counted once."""
+    out = list(x.pieces)
+    mesh = x.mesh
+    for members in x.holders():
+        if len(members) == 1:
+            continue
+        root = mesh.devices[members[0]]
+        acc = x.pieces[members[0]]
+        for r in members[1:]:
+            acc = acc + x.pieces[r].to(root)
+        _count("all-reduce", members, _nbytes(acc))
+        for r in members:
+            out[r] = acc.to(mesh.devices[r])
+    return x.like(out)

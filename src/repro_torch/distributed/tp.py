@@ -2,7 +2,7 @@
 
 The port of ``src/repro/distributed/tp.py`` (DESIGN.md §Tensor-parallel
 execution). One logical replica spans the ``tp`` shards of a 1-D
-``("model",)`` mesh (:class:`TPMesh`, from ``launch.mesh.make_tp_mesh``).
+``("model",)`` mesh (``launch.mesh.make_tp_mesh``).
 The pooled block-first KV buffer shards its *kv-head* dim (pool row shape
 ``(L, 2, P, Hkv/TP, D)`` per shard) while block-table slot ids stay
 GLOBAL (the row dim is never sharded), so DuplexKV, RotaSched and the
@@ -18,15 +18,13 @@ the MLP sharded: validated, never silent.
 Specs are the port's ``PSpec`` tuples (``distributed/sharding.py``: one
 entry per dim, trailing Nones dropped). Where the reference's
 ``shard_map`` sliced the operands and ``psum`` added the partials, the
-engine here is one controller that calls :func:`shard_slice` once per
-weight at load time and :func:`all_reduce` after ``wo`` and ``w_down``.
+engine here is one controller that places each weight once at load time
+(``spmd.place_spec``) and all-reduces over "model" after ``wo`` and
+``w_down`` (``spmd.all_reduce``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
-
-import torch
 
 from repro_torch.distributed.sharding import PSpec
 
@@ -97,14 +95,6 @@ def plan_tp_sharding(cfg, tp: int) -> TPPlan:
     return TPPlan(tp=tp, shard_kv=False, shard_mlp=True, kv_shards=1)
 
 
-@dataclasses.dataclass(frozen=True)
-class TPMesh:
-    """A 1-D ``("model",)`` mesh: shard ``i`` lives on ``devices[i]``.
-    Devices may repeat (shards stacked on one card)."""
-    devices: Tuple[torch.device, ...]
-    axis_names: Tuple[str, ...] = ("model",)
-
-
 # --------------------------------------------------------------------------
 # Partition specs (the port's PSpec tuples)
 # --------------------------------------------------------------------------
@@ -144,34 +134,3 @@ def head_pspecs(head: dict) -> dict:
     tiny next to the layer stack, and a replicated head keeps the argmax
     bit-identical to the single-device runner."""
     return {k: () for k in head}
-
-
-# --------------------------------------------------------------------------
-# What shard_map and psum did implicitly
-# --------------------------------------------------------------------------
-
-def shard_slice(x: torch.Tensor, spec: PSpec, i: int, tp: int,
-                device) -> torch.Tensor:
-    """Shard ``i`` of ``tp`` of the full tensor ``x`` under ``spec``: the
-    ``i``-th contiguous piece along its "model" dim (all of ``x`` when the
-    spec is replicated), as a contiguous tensor of its own on ``device``."""
-    if "model" in spec:
-        d = spec.index("model")
-        n = x.shape[d]
-        if n % tp:
-            raise ValueError(f"dim {d} of size {n} is not divisible by "
-                             f"tp={tp}")
-        x = x.narrow(d, i * (n // tp), n // tp)
-    out = torch.empty(x.shape, dtype=x.dtype, device=device)
-    return out.copy_(x)
-
-
-def all_reduce(parts: Sequence[torch.Tensor],
-               devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """The sum of the shards' partials, in their own dtype, added in shard
-    order on shard 0's device, then placed on each shard's device (a
-    repeated device gets the same tensor)."""
-    acc = parts[0]
-    for p in parts[1:]:
-        acc = acc + p.to(acc.device)
-    return [acc.to(d) for d in devices]

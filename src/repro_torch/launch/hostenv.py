@@ -17,8 +17,9 @@ Device = Union[str, torch.device]
 
 
 def ensure_host_devices(n: int, device: Optional[Union[
-        Device, Sequence[Device]]] = None) -> None:
-    """Make sure ``n`` shards can be placed on ``device``.
+        Device, Sequence[Device]]] = None, what: str = "") -> None:
+    """Make sure ``n`` shards (of ``what``: ``tp=n`` by default) can be
+    placed on ``device``.
 
     No-op for ``n <= 1``, for the CPU, and for an explicit list of ``n``
     devices (``make_tp_mesh`` takes it as given). Otherwise ``device`` is
@@ -26,11 +27,12 @@ def ensure_host_devices(n: int, device: Optional[Union[
     at least ``n`` cards; fewer raise ``RuntimeError`` with the recipe.
     """
     n = int(n)
+    what = what or f"tp={n}"
     if n <= 1:
         return
     if isinstance(device, (list, tuple)):
         if len(device) != n:
-            raise ValueError(f"tp={n} needs a list of {n} devices, got "
+            raise ValueError(f"{what} needs a list of {n} devices, got "
                              f"{len(device)}: {list(device)}")
         return
     if device is not None and torch.device(device).type == "cpu":
@@ -38,7 +40,7 @@ def ensure_host_devices(n: int, device: Optional[Union[
     have = torch.cuda.device_count()
     if have < n:
         raise RuntimeError(
-            f"need {n} devices for tp={n} but torch sees {have} CUDA "
+            f"need {n} devices for {what} but torch sees {have} CUDA "
             f"devices. Pass device='cpu' (--device cpu) to run the {n} "
             f"shards on the CPU, or an explicit list of {n} devices, e.g. "
             f"{['cuda:0'] * n} (--device {','.join(['cuda:0'] * n)}) to "

@@ -13,9 +13,14 @@ device time (kernels by name on CUDA; aten operators by self CPU time with
     PYTHONPATH=src python -m repro_torch.launch.inspect_hlo --arch llama3-8b \\
         --shape decode_32k --periods 1 [--top 20] [--device cpu]
 
-It runs on CUDA unless ``--device cpu``. A mesh of more than one device is
-tensor parallelism, not ported yet (ROADMAP.md §1 item 3), so ``--mesh``
-takes only "none" (one device).
+It runs on CUDA unless ``--device cpu``. ``--mesh D,M`` runs a train
+cell's step on a ``(data, model)`` mesh (``launch.mesh.make_mesh``: CUDA
+needs ``D·M`` cards unless ``--device`` lists one device a shard, e.g.
+``cuda:0,cuda:0,cuda:0,cuda:0``; ``--device cpu`` puts every shard on the
+CPU) and prints the top operations of each device, then the bytes each
+position's collectives counted and the roofline's collective term they
+give. Prefill and decode cells run on one device (their mesh path is
+ROADMAP.md §1 item 3).
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ import sys
 import torch
 
 
-def concrete_args(bundle, cfg, shape, device, seed: int = 0):
+def concrete_args(bundle, cfg, shape, device, seed: int = 0, mesh=None):
     """The step's arguments on ``device``: weights drawn from a seeded
-    generator, zero moments and caches, ``make_demo_inputs``'s batch."""
+    generator, zero moments and caches, ``make_demo_inputs``'s batch; a
+    train state laid over ``mesh`` when one is given."""
     from repro_torch.models.api import make_demo_inputs
     from repro_torch.models.params import init_lm_params
     from repro_torch.optimizer import adamw
@@ -41,7 +47,12 @@ def concrete_args(bundle, cfg, shape, device, seed: int = 0):
     if bundle.kind == "train":
         opt = adamw.AdamWConfig(
             moments_dtype=bundle.static_meta["moments_dtype"])
-        return [TrainState(params, adamw.init_state(params, opt)), batch]
+        state = TrainState(params, adamw.init_state(params, opt))
+        if mesh is not None:
+            from repro_torch.models.lm import LM
+            from repro_torch.training.step import place_state
+            state = place_state(LM(cfg), opt, state, mesh)
+        return [state, batch]
     if bundle.kind == "prefill":
         return [params, batch]
     caches = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
@@ -58,7 +69,8 @@ def top_ops(prof, device) -> collections.Counter:
     if device.type == "cuda":
         from torch.autograd import DeviceType
         for e in prof.profiler.kineto_results.events():
-            if e.device_type() == DeviceType.CUDA:
+            if (e.device_type() == DeviceType.CUDA
+                    and e.device_index() == (device.index or 0)):
                 row = out[e.name()]
                 row[0] += e.duration_ns() / 1e6
                 row[1] += 1
@@ -75,9 +87,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
-    ap.add_argument("--mesh", default="none", choices=["none"],
-                    help="one device (a mesh waits for ROADMAP.md §1 "
-                         "item 3)")
+    ap.add_argument("--mesh", default="none",
+                    help="'none' (one device) or 'D,M': a train cell on a "
+                         "(data, model) mesh")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--periods", type=int, default=1)
     ap.add_argument("--top", type=int, default=20)
@@ -86,57 +98,107 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' to run there)")
     args = ap.parse_args(argv)
+    mesh_shape = None
+    if args.mesh != "none":
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            ap.error(f"--mesh takes 'none' or 'D,M', got {args.mesh!r}")
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.device import resolve_device
+    from repro_torch.distributed import spmd
     from repro_torch.launch import roofline
     from repro_torch.launch.dryrun import depth_variant, period_len
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import make_step_bundle
+    from repro_torch.models.lm import LM
+    from repro_torch.optimizer.adamw import AdamWConfig
+    from repro_torch.training.step import make_train_step
 
     opts = {}
     for kv in args.opt:
         k, v = kv.split("=", 1)
         opts[k] = int(v) if v.isdigit() else v
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     var = depth_variant(cfg, args.periods, period_len(cfg))
     shape = SHAPES[args.shape]
     bundle = make_step_bundle(var, shape, microbatches=args.microbatches,
                               **opts)
-    step_args = concrete_args(bundle, var, shape, device)
+    mesh, fn = None, bundle.fn
+    if mesh_shape is not None:
+        if bundle.kind != "train":
+            raise NotImplementedError(
+                f"--mesh runs train cells; {args.shape} is a "
+                f"{bundle.kind} cell, whose mesh path waits for ROADMAP.md "
+                f"§1 item 3")
+        dev = (args.device.split(",") if args.device and "," in args.device
+               else args.device)
+        mesh = make_mesh(mesh_shape, ("data", "model")[:len(mesh_shape)],
+                         dev)
+        device = mesh.devices[0]
+        meta = bundle.static_meta
+        fn = make_train_step(
+            LM(var, remat_group=meta["remat_group"]),
+            AdamWConfig(moments_dtype=meta["moments_dtype"]),
+            microbatches=meta["microbatches"],
+            accum_dtype=meta["accum_dtype"], mesh=mesh)
+    else:
+        device = resolve_device(args.device)
+    step_args = concrete_args(bundle, var, shape, device, mesh=mesh)
+    devices = sorted(set(mesh.devices if mesh is not None else [device]),
+                     key=str)
 
     def run():
-        bundle.fn(*step_args)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        fn(*step_args)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     run()                                   # warm-up
     acts = [ProfilerActivity.CUDA if device.type == "cuda"
             else ProfilerActivity.CPU]
+    spmd.reset_collective_bytes()
     with profile(activities=acts) as prof:
         run()
+    for dev in devices:
+        print_top(prof, dev, args, var, opts, mesh)
+    print(f"# model_flops={roofline.model_flops(var, shape):.3e} "
+          f"(this depth)")
+    if mesh is not None:
+        for r in range(mesh.size):
+            coll = spmd.collective_bytes(r)
+            term = roofline.roofline_terms(0.0, 0.0, sum(coll.values()))
+            print(f"# position {r} ({mesh.devices[r]}): collective bytes "
+                  f"{coll}, collective term {term['collective_s']:.6f} s "
+                  f"at {roofline.H100_SXM.link_bw:.3e} B/s")
+    for dev in devices:
+        if dev.type == "cuda":
+            print(f"# peak device memory on {dev} "
+                  f"{torch.cuda.max_memory_allocated(dev)} B")
+    return 0
+
+
+def print_top(prof, device, args, var, opts, mesh) -> None:
+    """The top operations of one device of the trace."""
     rows = top_ops(prof, device)
     total = sum(ms for ms, _ in rows.values())
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu")
+    where = (torch.cuda.get_device_name(device) + f" ({device})"
+             if device.type == "cuda" else "cpu")
     what = "device" if device.type == "cuda" else "self CPU"
+    on_mesh = (f" mesh={dict(mesh.shape)}, {mesh.devices.count(device)} "
+               f"shards here" if mesh is not None else "")
     print(f"# {args.arch} {args.shape} periods={args.periods} "
           f"({var.num_layers} layers) mb={args.microbatches} opts={opts} on "
-          f"{where}: {sum(c for _, c in rows.values())} operations, "
-          f"{total:.3f} ms {what} time")
+          f"{where}{on_mesh}: {sum(c for _, c in rows.values())} "
+          f"operations, {total:.3f} ms {what} time")
     print(f"{'ms':>10} {'share':>6} {'calls':>6}  operation")
     for name, (ms, calls) in sorted(rows.items(),
                                     key=lambda kv: -kv[1][0])[:args.top]:
         print(f"{ms:10.3f} {ms / total if total else 0.0:6.3f} {calls:6d}  "
               f"{name[:100]}")
-    print(f"# model_flops={roofline.model_flops(var, shape):.3e} "
-          f"(this depth)")
-    if device.type == "cuda":
-        print(f"# peak device memory "
-              f"{torch.cuda.max_memory_allocated(device)} B")
-    return 0
 
 
 if __name__ == "__main__":

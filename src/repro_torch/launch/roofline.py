@@ -12,9 +12,13 @@ place of TPU v5e's. Terms:
 unchanged. The reference reads its FLOPs and collective bytes from the
 compiled HLO; the port has no HLO: its FLOPs come from
 ``torch.utils.flop_counter.FlopCounterMode`` plus the hand-written
-kernels' own formulas (``kernels/*.py::flops_and_bytes``), and with
-sharded execution not ported (ROADMAP.md §1 item 3) the collective term
-is 0 on one device and unknown (None, with the reason) on a mesh of more.
+kernels' own formulas (``kernels/*.py::flops_and_bytes``). Its collective
+bytes are what a run's collectives counted (``distributed/spmd.py``:
+``collective_bytes``, per position, the reference's result-shape
+convention), over ``Peaks.link_bw``: 0 on one device, counted on a mesh
+that ran (``inspect_hlo --mesh``, ``chip_smoke.py`` phase 15), and unknown
+(None, with the reason ``NO_COLLECTIVES``) on the dry-run's production
+meshes, where nothing runs.
 """
 from __future__ import annotations
 
@@ -32,8 +36,10 @@ HBM_BYTES_S = 3.35e12             # HBM3, bytes/s
 # rate, NVLINK_BYTES_S / 2 = 450 GB/s.
 NVLINK_BYTES_S = 900e9
 
-NO_COLLECTIVES = ("collective bytes on a mesh of more than one device need "
-                  "sharded execution, not ported yet (ROADMAP.md §1 item 3)")
+NO_COLLECTIVES = ("collective bytes are counted by running the mesh "
+                  "(distributed/spmd.py); the dry-run runs nothing on its "
+                  "256- and 512-device meshes, whose collective term waits "
+                  "for ROADMAP.md §1 item 3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,8 +182,8 @@ def summarize(cfg: ModelConfig, shape: ShapeConfig, num_devices: int,
               hw: Peaks = H100_SXM) -> Dict:
     """The roofline record of one step. ``cost``: {"flops": per device}
     (and "bytes accessed" where measured); ``coll``: collective bytes per
-    device by kind, or None where they are unknown (a mesh of more than
-    one device: ``NO_COLLECTIVES``)."""
+    device by kind (``spmd.collective_bytes()`` of a run), or None where
+    they are unknown (the dry-run's meshes: ``NO_COLLECTIVES``)."""
     flops_dev = float(cost.get("flops", 0.0)) if cost else 0.0
     raw_bytes_dev = float(cost.get("bytes accessed", 0.0)) if cost else 0.0
     bytes_dev = (memory_model or {}).get("total", raw_bytes_dev)

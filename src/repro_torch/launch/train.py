@@ -4,12 +4,17 @@ deterministic resume, and an iteration watchdog (straggler telemetry).
 The port of ``src/repro/launch/train.py``, with the same flags and prints,
 plus ``--device`` (default ``cuda``; with no CUDA device only ``--device
 cpu`` runs). Weights are drawn from ``torch.Generator(device)`` seeded with
-``--seed``. ``--mesh`` raises: sharding waits for tensor parallelism
-(ROADMAP.md §1 item 3).
+``--seed`` (on a mesh: on its first device, then placed, so a mesh trains
+the weights of the run without one). ``--mesh D,M`` trains on a
+``(data, model)`` mesh (``launch.mesh.make_mesh``): ``--device cpu`` puts
+every shard on the CPU, a comma-separated list of ``D·M`` devices is taken
+as given (``cuda:0,cuda:0,cuda:0,cuda:0`` stacks four shards on one
+card), and ``cuda`` needs ``D·M`` cards. ``--resume`` restores onto the
+mesh of this run, whatever mesh saved the checkpoint.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir build/ckpt \\
-        --ckpt-every 20 --device cpu
+        --ckpt-every 20 --device cpu [--mesh 2,2]
 """
 from __future__ import annotations
 
@@ -41,13 +46,9 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="'cuda' (default) or 'cpu'")
+                    help="'cuda' (default), 'cpu', or with --mesh a "
+                         "comma-separated list of one device a shard")
     args = ap.parse_args(argv)
-
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded training is not ported yet (ROADMAP.md §1 "
-            "item 3, tensor parallelism)")
 
     import torch
 
@@ -55,11 +56,19 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Prefetcher, SyntheticPacked
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import LM
     from repro_torch.optimizer.adamw import AdamWConfig
     from repro_torch.training import step as steplib
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        devs = args.device.split(",") if "," in args.device else args.device
+        mesh = make_mesh(shape, ("data", "model")[:len(shape)], devs)
+        device = mesh.devices[0]
+    else:
+        device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -71,9 +80,12 @@ def main(argv=None):
     lm = LM(cfg)
     opt_cfg = AdamWConfig(lr=args.lr, moments_dtype=args.moments_dtype)
     train_step = steplib.make_train_step(lm, opt_cfg,
-                                         microbatches=args.microbatches)
+                                         microbatches=args.microbatches,
+                                         mesh=mesh)
+    where = (f"mesh {dict(mesh.shape)} on {sorted(set(map(str, mesh.devices)))}"
+             if mesh is not None else str(device))
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-          f"devices=1 ({device})")
+          f"devices={mesh.size if mesh is not None else 1} ({where})")
 
     data = SyntheticPacked(cfg.vocab_size, args.seq, args.batch,
                            seed=args.seed)
@@ -81,11 +93,11 @@ def main(argv=None):
 
     state = steplib.init_train_state(
         lm, torch.Generator(device=device).manual_seed(args.seed), opt_cfg,
-        device)
+        device, mesh=mesh)
     start = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
         start = ckpt.latest_step()
-        state = ckpt.restore(start, state, device)
+        state = ckpt.restore(start, state, device, mesh=mesh)
         data.skip_to(start)
         print(f"resumed from step {start}")
 

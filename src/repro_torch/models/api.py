@@ -91,13 +91,8 @@ class StepBundle:
 def _mesh_microbatches(mb: int, global_batch: int) -> int:
     """Under the active mesh, halve ``mb`` until each microbatch still
     splits over the batch shards."""
-    mesh = sharding.current_mesh()
-    if mesh is None:
-        return mb
-    shards = sharding.mesh_axis_size(mesh, sharding.batch_axes(mesh, None))
-    while mb > 1 and (global_batch // mb) % shards != 0:
-        mb //= 2
-    return mb
+    return train_step_lib.mesh_microbatches(mb, global_batch,
+                                            sharding.current_mesh())
 
 
 def make_step_bundle(cfg: ModelConfig, shape: ShapeConfig, *,

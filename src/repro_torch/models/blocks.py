@@ -9,6 +9,15 @@ Mamba-2 SSM layers (``models/ssm.py``), cross-attention over an encoder's
 memory, and a dense or MoE (``models/moe.py``) FFN. Eager PyTorch in place
 of jnp; the decode path updates its caches in place. The weights' shapes
 live in ``models/params.py``.
+
+``shard_weights`` and ``apply_layer_shards`` run a decoder layer (dense
+or MoE FFN) over a mesh (``distributed/spmd.py``), the counterpart of
+what GSPMD compiles from the reference's sharding annotations: each
+position computes its data shard's rows with its model shard's q heads,
+``d_ff`` columns or experts, and the partials of ``wo``, ``w_down`` and
+the MoE combine are all-reduced over "model" (not where the heads, the
+``d_ff`` or the experts stay whole on every shard: there every shard
+computes the whole).
 """
 from __future__ import annotations
 
@@ -18,11 +27,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ArraySpec, apply_rope, rms_norm,
                                       swiglu)
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_ffn, moe_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,3 +317,76 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     if f is not None:
         x = x + f[:, 0]
     return x, cache
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+def _kv_heads_of(first: int, n: int, group: int):
+    """The kv heads that q heads [first, first + n) read: a slice when
+    they cover whole groups or lie in one (flash's GQA then lines them
+    up), else one kv head a q head."""
+    lo, hi = first // group, (first + n - 1) // group + 1
+    if (first % group == 0 and n % group == 0) or hi - lo == 1:
+        return slice(lo, hi)
+    return [(first + t) // group for t in range(n)]
+
+
+def shard_weights(cfg: ModelConfig, p: Dict, mesh) -> list:
+    """Each position's weights of one layer from its ``spmd.Placed``
+    leaves (nested ``moe`` dict included): the dims sharded over "data"
+    (FSDP) gathered, and, where the q heads split over "model" and the kv
+    heads do not, the kv heads that position's q heads read.
+    Differentiable: the gathers' gradients reduce-scatter back."""
+    def walk(src):
+        out = [dict() for _ in range(mesh.size)]
+        for k, v in src.items():
+            parts = walk(v) if isinstance(v, dict) else \
+                spmd.gathered_over(v, "data")
+            for d, t in zip(out, parts):
+                d[k] = t
+        return out
+
+    ws = walk(p)
+    if "wq" in p and "wk" in p:
+        group = cfg.num_heads // cfg.num_kv_heads
+        for r, w in enumerate(ws):
+            n = w["wq"].shape[1]
+            if n == cfg.num_heads or w["wk"].shape[1] != cfg.num_kv_heads:
+                continue
+            sel = _kv_heads_of(mesh.axis_index(r, "model") * n, n, group)
+            for k in ("wk", "wv"):
+                w[k] = (w[k][:, sel] if isinstance(sel, slice) else
+                        w[k].index_select(1, torch.tensor(
+                            sel, device=w[k].device)))
+    return ws
+
+
+def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
+                       ws: list, xs: list, positions: list) -> list:
+    """One attention layer with a dense or MoE FFN over the mesh: ``ws``
+    from ``shard_weights``, ``xs[r]`` position r's copy of its data
+    shard's residual stream (b, S, d), ``positions[r]`` (b, S). Returns
+    the new residual streams."""
+    if spec.mixer != "attn" or spec.has_cross:
+        raise NotImplementedError(
+            f"{spec} on a mesh: only attention layers with a dense or MoE "
+            f"FFN run on a mesh (ROADMAP.md §1 item 3)")
+    window = 0 if spec.is_global else cfg.attn.sliding_window
+    outs = [_attn_seq(cfg, spec, w, x, pos, window)[0]
+            for w, x, pos in zip(ws, xs, positions)]
+    if ws[0]["wo"].shape[0] != cfg.num_heads:
+        outs = spmd.all_reduce(outs, mesh, "model")
+    xs = [x + o for x, o in zip(xs, outs)]
+    if spec.ffn == "none":
+        return xs
+    hs = [rms_norm(x, w["ln2"], cfg.rms_eps) for w, x in zip(ws, xs)]
+    if spec.ffn == "moe":
+        fs = moe_shard(hs, [w["moe"] for w in ws], cfg.moe, mesh)
+    else:
+        fs = [swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
+              for w, h in zip(ws, hs)]
+        if ws[0]["w_gate"].shape[1] != cfg.d_ff:
+            fs = spmd.all_reduce(fs, mesh, "model")
+    return [x + f for x, f in zip(xs, fs)]

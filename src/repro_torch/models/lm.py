@@ -14,7 +14,16 @@ reads; a decoder with a frontend puts its projected embeddings before the
 tokens. ``train_loss`` is the training objective; with ``remat`` it runs
 the decoder's layers in groups of ``remat_group`` under
 ``torch.utils.checkpoint``, the counterpart of the reference's
-``jax.checkpoint`` and grouped remat. ``param_structs``, ``param_axes``
+``jax.checkpoint`` and grouped remat. ``train_loss(..., mesh=...)`` runs
+the dense and MoE decoder families over a mesh of devices on weights laid
+out by ``distributed/spmd.py`` (each data row of the mesh takes its share
+of the batch; heads, ``d_ff``, experts and the vocabulary split over
+"model"; FSDP weights gathered over "data" layer by layer inside the
+remat groups, so the gathered copies are freed after each group and
+gathered again in its recompute; the groups rematerialize through
+``_Remat``, whose backward recomputes on one thread, where
+``torch.utils.checkpoint``'s hooks would run on every card's autograd
+thread at once). ``param_structs``, ``param_axes``
 and ``cache_specs`` describe the weights and caches, with their logical
 axes, without allocating them (the dry-run's input). The reference's
 ``scan_unroll`` served its dry-run's cost extrapolation over ``lax.scan``;
@@ -31,10 +40,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LayerSpec, make_layer_spec
 from repro_torch.models.common import ArraySpec, dtype_of, rms_norm
 from repro_torch.models.params import param_axes, param_specs
+from repro_torch.tree import flatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,11 +207,15 @@ class LM:
                                           memory=memory)
         return x
 
-    def train_loss(self, params, batch, *, remat: bool = True
+    def train_loss(self, params, batch, *, remat: bool = True, mesh=None
                    ) -> torch.Tensor:
         """batch: tokens, labels, mask (B, S) [+ embeds or src_embeds]. The
         mean next-token NLL over the mask, from fp32 logits over the token
-        region (after a frontend's embeddings)."""
+        region (after a frontend's embeddings). With ``mesh`` the weights
+        are ``spmd.Placed`` leaves over it (``training.step.
+        init_train_state(..., mesh=)``)."""
+        if mesh is not None:
+            return self._train_loss_mesh(params, batch, remat, mesh)
         cfg = self.cfg
         memory = (self._encode(params, batch["src_embeds"])
                   if self.enc_program else None)
@@ -223,3 +238,166 @@ class LM:
                             batch["labels"].long()[..., None])[..., 0]
         mask = batch["mask"].float()
         return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+    # -- on a mesh --------------------------------------------------------
+
+    def _remat_shards(self, layers, xs, positions, mesh):
+        """``_run_shards`` over one remat group through ``_Remat``: the
+        group's streams and weight pieces are its inputs."""
+        specs = [spec for spec, _ in layers]
+        leaves, rebuild = flatten([p for _, p in layers])
+
+        def run(xs, pieces):
+            out, i = [], 0
+            for x in leaves:
+                out.append(x.like(pieces[i:i + len(x.pieces)]))
+                i += len(x.pieces)
+            return self._run_shards(list(zip(specs, rebuild(out))), xs,
+                                    positions, mesh)
+
+        pieces = [p for x in leaves for p in x.pieces]
+        return list(_Remat.apply(run, len(xs), *xs, *pieces))
+
+    def _run_shards(self, layers, xs, positions, mesh):
+        for spec, p in layers:
+            ws = blocks.shard_weights(self.cfg, p, mesh)
+            xs = blocks.apply_layer_shards(self.cfg, spec, mesh, ws, xs,
+                                           positions)
+            del ws
+        return xs
+
+    def _train_loss_mesh(self, params, batch, remat, mesh) -> torch.Tensor:
+        """``train_loss`` over ``mesh``: the global masked mean, the sum of
+        every data shard's masked NLL over the whole batch's mask count.
+        The embedding is a masked lookup in each model shard's vocabulary
+        rows, all-reduced; the loss takes the logsumexp and the gold logit
+        across the vocabulary shards (the max first, then the sums)."""
+        cfg = self.cfg
+        check_mesh_support(cfg, mesh)
+        D = mesh.shape.get("data", 1)
+        B, S = batch["tokens"].shape
+        if B % D:
+            raise ValueError(f"batch {B} does not split over the mesh's "
+                             f"{D} data shards")
+        b, V = B // D, cfg.vocab_size
+        devs = mesh.devices
+        row = [mesh.axis_index(r, "data") for r in range(mesh.size)]
+
+        def rows(k, r):
+            return batch[k][row[r] * b:(row[r] + 1) * b].to(devs[r])
+
+        def vocab_cols(r, n):
+            """(first vocabulary row of position r's shard, its rows)."""
+            return (mesh.axis_index(r, "model") * n if n != V else 0), n
+
+        head = params["head"]
+        emb = spmd.gathered_over(head["embed"], "data")
+        xs = []
+        for r in range(mesh.size):
+            tok = rows("tokens", r).long()
+            off, n = vocab_cols(r, emb[r].shape[0])
+            if n == V:
+                xs.append(emb[r][tok])
+                continue
+            idx = tok - off
+            inside = (idx >= 0) & (idx < n)
+            xs.append(emb[r][idx.clamp(0, n - 1)]
+                      * inside[..., None].to(emb[r].dtype))
+        if emb[0].shape[0] != V:
+            xs = spmd.all_reduce(xs, mesh, "model")
+        positions = [torch.arange(S, device=d).expand(b, S) for d in devs]
+        layers = list(zip(self.specs, params["layers"], strict=True))
+        g = self.remat_group if remat else len(layers)
+        for i in range(0, len(layers), g):
+            group = layers[i:i + g]
+            xs = (self._remat_shards(group, xs, positions, mesh) if remat
+                  else self._run_shards(group, xs, positions, mesh))
+
+        norm = spmd.gathered_over(head["final_norm"], "data")
+        out = (emb if cfg.tie_embeddings
+               else spmd.gathered_over(head["lm_head"], "data"))
+        split = (out[0].shape[0] if cfg.tie_embeddings
+                 else out[0].shape[1]) != V
+        # with the vocabulary whole, one position of each data row computes
+        # the logits; the other copies of its stream get no gradient
+        live = [r for r in range(mesh.size)
+                if split or mesh.axis_index(r, "model") == 0]
+        logits, top, gold = {}, {}, {}
+        for r in live:
+            h = rms_norm(xs[r], norm[r], cfg.rms_eps)
+            z = (h @ out[r].T if cfg.tie_embeddings else h @ out[r]).float()
+            off, n = vocab_cols(r, z.shape[-1])
+            lab = rows("labels", r).long() - off
+            inside = (lab >= 0) & (lab < n)
+            logits[r] = z
+            top[r] = z.amax(dim=-1)
+            gold[r] = torch.gather(z, -1, lab.clamp(0, n - 1)[..., None]
+                                   )[..., 0] * inside
+        if split:
+            top = dict(enumerate(spmd.all_reduce_max(
+                [top[r] for r in range(mesh.size)], mesh, "model")))
+        sums = {r: torch.exp(logits[r] - top[r][..., None]).sum(dim=-1)
+                for r in live}
+        if split:
+            sums = dict(enumerate(spmd.all_reduce(
+                [sums[r] for r in range(mesh.size)], mesh, "model")))
+            gold = dict(enumerate(spmd.all_reduce(
+                [gold[r] for r in range(mesh.size)], mesh, "model")))
+        total = None
+        for members in spmd.groups(mesh, "model"):
+            r = members[0]
+            nll = top[r] + torch.log(sums[r]) - gold[r]
+            part = (nll * rows("mask", r).float()).sum().to(devs[0])
+            total = part if total is None else total + part
+        count = batch["mask"].float().sum().to(devs[0])
+        return total / torch.clamp(count, min=1.0)
+
+
+class _Remat(torch.autograd.Function):
+    """Rematerialization of a function of tensors, for the mesh path: the
+    forward runs ``run(xs, pieces)`` without a graph and keeps only its
+    inputs; the backward runs it again with one and takes the inputs'
+    gradients with ``torch.autograd.grad``, a nested backward that waits
+    on the calling thread. Inputs: ``run``, the count of ``xs``, then the
+    ``xs`` and the weight pieces."""
+
+    @staticmethod
+    def forward(ctx, run, n_x, *tensors):
+        ctx.run, ctx.n_x = run, n_x
+        ctx.save_for_backward(*tensors)
+        out = run(list(tensors[:n_x]), list(tensors[n_x:]))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = [t.detach().requires_grad_(t.requires_grad)
+               for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.run(ins[:ctx.n_x], ins[ctx.n_x:])
+        live = [i for i, t in enumerate(ins) if t.requires_grad]
+        got = torch.autograd.grad(out, [ins[i] for i in live], grads,
+                                  allow_unused=True)
+        full = [None] * len(ins)
+        for i, g in zip(live, got):
+            full[i] = g
+        return (None, None, *full)
+
+
+def check_mesh_support(cfg: ModelConfig, mesh) -> None:
+    """The families and meshes the mesh path runs: decoder-only dense and
+    MoE configs on a mesh of devices over "data" and "model"."""
+    if cfg.ssm is not None or cfg.num_encoder_layers or cfg.cross_attention \
+            or cfg.frontend.kind != "none":
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family}) on a mesh: only decoder-only "
+            f"dense and MoE configs run on a mesh so far; SSM, hybrid, "
+            f"encoder-decoder and frontend configs wait for ROADMAP.md §1 "
+            f"item 3")
+    if mesh.devices is None:
+        raise ValueError("training on a mesh needs its devices "
+                         "(launch.mesh.make_mesh)")
+    extra = set(mesh.axis_names) - {"data", "model"}
+    if extra:
+        raise NotImplementedError(
+            f"mesh axes {sorted(extra)}: the mesh path runs over 'data' and "
+            f"'model' only (ROADMAP.md §1 item 3)")

@@ -15,8 +15,17 @@ combine is in fp32, then cast to the input's dtype.
 Note that at ``T = 1`` (a decode step) ``cap`` is 1 and the products read
 every expert's weights, as the reference's do.
 
-The expert-parallel branch (``shard_map`` over a "model" mesh axis) waits
-for tensor parallelism (ROADMAP.md §1 item 7b).
+Under a mesh (``moe_ffn(..., mesh=...)``, and the LM's mesh path through
+:func:`moe_shard`) this is the reference's ``shard_map`` branch
+(``src/repro/models/moe.py:77-127``): each data shard routes only its own
+tokens, so the capacity counts them, not the whole batch's; each model
+shard owns ``E/M`` experts from ``index·E/M``, routes with the global
+router, keeps the assignments to its experts and adds its partial combine
+to the others' (an all-reduce over "model"). When ``M`` does not divide
+``E`` the reference takes ``ep = gcd(E, M)`` but keeps every expert on
+every shard and adds nothing, while ``ep`` still divides the capacity:
+``cap = ceil(T·k/(E·ep)·capacity_factor)``. The port does the same
+(ROADMAP.md §3 logs it as a quirk of the reference).
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import spmd
 
 
 class Routing(NamedTuple):
@@ -37,8 +47,10 @@ class Routing(NamedTuple):
 
 
 def route(xf: torch.Tensor, router_w: torch.Tensor,
-          mcfg: MoEConfig) -> Routing:
-    """The dispatch plan of ``_moe_local`` for xf (T, d)."""
+          mcfg: MoEConfig, cap_experts: int = 0) -> Routing:
+    """The dispatch plan of ``_moe_local`` for xf (T, d); the capacity
+    divides the T·k assignments over ``cap_experts`` (the reference's
+    ``e_local · ep_size``; all E experts by default)."""
     T = xf.shape[0]
     E, k = router_w.shape[1], mcfg.top_k
     logits = xf.float() @ router_w.float()                  # (T, E)
@@ -47,7 +59,8 @@ def route(xf: torch.Tensor, router_w: torch.Tensor,
                                    stable=True)
     top_vals, top_idx = top_vals[:, :k], top_idx[:, :k]
     weights = torch.softmax(top_vals, dim=-1)
-    cap = max(int(math.ceil(T * k / E * mcfg.capacity_factor)), 1)
+    cap = max(int(math.ceil(T * k / (cap_experts or E)
+                            * mcfg.capacity_factor)), 1)
     # one_hot itself would read the indices back to the host to check them
     onehot = (top_idx.reshape(-1, 1) == torch.arange(
         E, device=xf.device)).long()                       # (T*k, E)
@@ -55,11 +68,19 @@ def route(xf: torch.Tensor, router_w: torch.Tensor,
     return Routing(top_idx, weights, pos, pos < cap, cap)
 
 
-def _moe_local(xf: torch.Tensor, p: dict, mcfg: MoEConfig) -> torch.Tensor:
+def _moe_local(xf: torch.Tensor, p: dict, mcfg: MoEConfig,
+               e_start: int = 0, ep_size: int = 1) -> torch.Tensor:
+    """The combine of xf (T, d) over the experts ``p`` holds, the
+    ``e_local`` from ``e_start`` of the router's E (a partial sum when
+    they are not all)."""
     T, d = xf.shape
     E, k = p["w_gate"].shape[0], mcfg.top_k
-    r = route(xf, p["router"], mcfg)
-    safe_e = torch.where(r.keep, r.top_idx.reshape(-1), E)  # E: the trash row
+    r = route(xf, p["router"], mcfg, cap_experts=E * ep_size)
+    local = r.top_idx.reshape(-1) - e_start
+    keep = r.keep
+    if E != p["router"].shape[1]:
+        keep = keep & (local >= 0) & (local < E)
+    safe_e = torch.where(keep, local, E)                   # E: the trash row
     slot = r.pos.clamp(max=r.cap - 1)
     tok_of = torch.arange(T * k, device=xf.device) // k
     x_e = xf.new_zeros((E + 1, r.cap, d))
@@ -70,18 +91,71 @@ def _moe_local(xf: torch.Tensor, p: dict, mcfg: MoEConfig) -> torch.Tensor:
     h = torch.nn.functional.silu(g.float()).to(xf.dtype) * u
     y_e = torch.bmm(h, p["w_down"])                         # (E, cap, d)
     y_tk = y_e[safe_e.clamp(max=E - 1), slot]               # (T*k, d)
-    y_tk = torch.where(r.keep[:, None], y_tk, 0)
+    y_tk = torch.where(keep[:, None], y_tk, 0)
     y_tk = y_tk.float() * r.weights.reshape(-1)[:, None]
     return y_tk.reshape(T, k, d).sum(dim=1).to(xf.dtype)
+
+
+def expert_parallelism(num_experts: int, model: int) -> int:
+    """The reference's ``ep``: the "model" axis size where it divides the
+    experts, else their gcd (the experts then stay whole on every
+    shard)."""
+    return model if num_experts % model == 0 else math.gcd(num_experts,
+                                                           model)
+
+
+def moe_shard(xs, ps, mcfg: MoEConfig, mesh):
+    """The expert-parallel branch over per-position tensors: ``xs[r]`` a
+    data shard's activations (b, S, d), ``ps[r]`` the experts position
+    ``r`` holds (all E, or ``E/M`` when M divides E) with the global
+    router. Returns each position's output, the partial combines
+    all-reduced over "model" when the experts are split."""
+    M = mesh.shape.get("model", 1)
+    E = ps[0]["router"].shape[1]
+    ep = expert_parallelism(E, M)
+    outs = []
+    for r, (x, p) in enumerate(zip(xs, ps)):
+        b, S, d = x.shape
+        e_local = p["w_gate"].shape[0]
+        e_start = mesh.axis_index(r, "model") * e_local if e_local != E \
+            else 0
+        outs.append(_moe_local(x.reshape(b * S, d), p, mcfg, e_start,
+                               ep).reshape(b, S, d))
+    if ps[0]["w_gate"].shape[0] != E:
+        outs = spmd.all_reduce(outs, mesh, "model")
+    return outs
 
 
 def moe_ffn(x: torch.Tensor, params: dict, mcfg: MoEConfig, *,
             mesh=None) -> torch.Tensor:
     """x: (B, S, d). params: router (d, E), w_gate/w_up (E, d, f), w_down
-    (E, f, d). The tokens of the whole call share the capacity."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh is not ported yet "
-            "(ROADMAP.md §1 item 7b)")
+    (E, f, d). With no mesh the tokens of the whole call share the
+    capacity. With a mesh of devices (``launch.mesh.make_mesh``; axes
+    "data" and "model") it is the reference's ``shard_map`` branch: x's
+    rows split over "data" (whole on every data shard when they do not
+    divide), the experts over "model" as ``expert_parallelism`` says, and
+    the result comes back whole on x's device."""
     B, S, d = x.shape
-    return _moe_local(x.reshape(B * S, d), params, mcfg).reshape(B, S, d)
+    if mesh is None:
+        return _moe_local(x.reshape(B * S, d), params, mcfg).reshape(B, S,
+                                                                     d)
+    if mesh.devices is None:
+        raise ValueError("moe_ffn over a mesh needs its devices "
+                         "(launch.mesh.make_mesh)")
+    D, M = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    E = params["w_gate"].shape[0]
+    split = expert_parallelism(E, M) == M and M > 1
+    rows = B // D if B % D == 0 else B
+    xs, ps = [], []
+    for r in range(mesh.size):
+        dev = mesh.devices[r]
+        i = mesh.axis_index(r, "data") if B % D == 0 else 0
+        xs.append(x[i * rows:(i + 1) * rows].to(dev))
+        j = mesh.axis_index(r, "model")
+        experts = slice(j * E // M, (j + 1) * E // M) if split else \
+            slice(0, E)
+        ps.append({k: (w if k == "router" else w[experts]).to(dev)
+                   for k, w in params.items()})
+    outs = moe_shard(xs, ps, mcfg, mesh)
+    data_rows = spmd.groups(mesh, "data")[0] if B % D == 0 else [0]
+    return torch.cat([outs[r].to(x.device) for r in data_rows], dim=0)

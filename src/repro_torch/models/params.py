@@ -114,14 +114,20 @@ def param_shapes(cfg: ModelConfig):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device, dtype: torch.dtype) -> Dict[str, object]:
+                device, dtype: torch.dtype, place=None) -> Dict[str, object]:
     """Random weights drawn from ``generator`` (which must live on
     ``device``), layer by layer in execution order, then the head, then the
     encoder; each tensor drawn in fp32 and cast to ``dtype`` at once, so
-    one fp32 temporary lives at a time. The draws are torch's, not the JAX
-    package's: to compare with the reference, bridge its weights with
-    ``from_jax_lm_params``."""
-    def draw(shape, init, _axes):
+    one fp32 temporary lives at a time. ``place(tensor, logical_axes)``,
+    where given, takes each tensor as soon as it is drawn (a mesh's
+    placement), so one whole tensor lives on ``device`` at a time. The
+    draws are torch's, not the JAX package's: to compare with the
+    reference, bridge its weights with ``from_jax_lm_params``."""
+    def draw(shape, init, axes):
+        w = fill(shape, init)
+        return w if place is None else place(w, axes)
+
+    def fill(shape, init):
         if init in ("zeros", "ones"):
             fill = torch.zeros if init == "zeros" else torch.ones
             return fill(shape, dtype=dtype, device=device)
@@ -202,11 +208,11 @@ def from_jax_params(layers: Sequence[Mapping[str, object]],
 
 
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
-                   device) -> Dict[str, object]:
+                   device, place=None) -> Dict[str, object]:
     """Weights of the dense ``LM`` at ``cfg.dtype``, drawn from
     ``generator`` exactly as ``init_params`` draws the paged runner's: one
     seed gives both executors the same model."""
-    return init_params(cfg, generator, device, dtype_of(cfg.dtype))
+    return init_params(cfg, generator, device, dtype_of(cfg.dtype), place)
 
 
 def layers_of_segments(program, segments) -> List[dict]:

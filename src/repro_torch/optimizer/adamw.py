@@ -15,9 +15,14 @@ The port of ``src/repro/optimizer/adamw.py`` over the port's weight tree
     step's scalars (clip, warmup, bias corrections) are fp32 tensors, as the
     reference's are.
 
-``state_logical_axes`` gives the state's logical axes, which the dry-run
-lays over a mesh: the moments inherit their parameters' (sharded execution
-waits for tensor parallelism, ROADMAP.md §1 item 3).
+``state_logical_axes`` gives the state's logical axes: the moments
+inherit their parameters', the int8 scales drop the last axis. On a mesh
+(``spmd.Placed`` leaves, ``training/step.py``) every distinct piece is
+updated once, then copied to the positions that hold it; where a leaf's
+last dim is split, its pieces along that dim are joined first, so the int8
+blocks and their scales are those of the whole last dim (a block may
+straddle two pieces) and a sharded moment stores exactly the unsharded
+one's codes and scales. The gradient norm counts each distinct piece once.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import is_axes_leaf
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -165,17 +171,82 @@ def state_logical_axes(param_axes, cfg: AdamWConfig) -> AdamWState:
                       v=tree_map(one, param_axes, is_leaf=is_axes_leaf))
 
 
+def _square_sum(g) -> torch.Tensor:
+    if not spmd.is_placed(g):
+        return torch.sum(torch.square(g.float()))
+    root = g.mesh.devices[0]
+    return sum(torch.sum(torch.square(g.pieces[m[0]].float())).to(root)
+               for m in g.holders())
+
+
 def _global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+    return torch.sqrt(sum(_square_sum(g) for g in tree_leaves(grads)))
+
+
+def _rows(p: "spmd.Placed"):
+    """The distinct pieces of ``p`` in units of whole last-dim rows: for
+    each setting of the other dims' pieces, the holders of each piece
+    along the last dim, in order."""
+    nd = len(p.shape)
+    split = len(p.spec) == nd and spmd.pieces_per_dim(p.spec, p.mesh)[-1] > 1
+    units = {}
+    for members in p.holders():
+        idx = spmd.piece_index(p.spec, p.mesh, members[0])
+        units.setdefault(idx[:nd - 1] if split else idx, []).append(members)
+    return list(units.values())
+
+
+def _update_placed(upd, p, g, m_s, v_s, int8: bool):
+    """``upd`` over a ``Placed`` leaf: once a unit of ``_rows``, on its
+    first holder's device, then split and copied to every holder."""
+    mesh = p.mesh
+    new = [[None] * mesh.size for _ in range(3)]
+    q_new = [[None] * mesh.size for _ in range(2)]
+    for unit in _rows(p):
+        reps = [members[0] for members in unit]
+        dev = mesh.devices[reps[0]]
+
+        def join(x):
+            parts = [x.pieces[r].to(dev) for r in reps]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
+        def moment(x):
+            return Quantized(join(x.q), x.scale.pieces[reps[0]]) if int8 \
+                else join(x)
+
+        res = upd(join(p), join(g), moment(m_s), moment(v_s))
+        sizes = [p.pieces[r].shape[-1] for r in reps]
+
+        def split(t):
+            """The unit's pieces, each owning its storage."""
+            if len(reps) == 1:
+                return [t]
+            return [c.clone() for c in torch.split(t, sizes, -1)]
+
+        for k, out in enumerate(res):
+            codes = out.q if int8 and k else out
+            for members, piece in zip(unit, split(codes)):
+                for r in members:
+                    new[k][r] = piece.to(mesh.devices[r])
+                    if int8 and k:
+                        q_new[k - 1][r] = out.scale.to(mesh.devices[r])
+    pl = p.like(new[0])
+    if not int8:
+        return _Update(pl, m_s.like(new[1]), v_s.like(new[2]))
+    return _Update(pl, Quantized(m_s.q.like(new[1]), m_s.scale.like(q_new[0])),
+                   Quantized(v_s.q.like(new[2]), v_s.scale.like(q_new[1])))
 
 
 @torch.no_grad()
 def apply_update(params, grads, state: AdamWState, cfg: AdamWConfig):
     """Returns (new_params, new_state, metrics); the inputs are not
     modified."""
-    step = state.step + 1
-    stepf = step.float()
+    if spmd.is_placed(state.step):
+        step = state.step.like([s + 1 for s in state.step.pieces])
+        stepf = step.pieces[0].float()
+    else:
+        step = state.step + 1
+        stepf = step.float()
     gnorm = _global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if cfg.grad_clip > 0 else 1.0)
@@ -184,7 +255,17 @@ def apply_update(params, grads, state: AdamWState, cfg: AdamWConfig):
     b1c = 1.0 - torch.pow(cfg.b1, stepf)
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
 
+    scalars = {}
+
+    def on(dev):
+        """The step's scalars on ``dev`` (a mesh may span cards)."""
+        if dev not in scalars:
+            scalars[dev] = tuple(t.to(dev) if torch.is_tensor(t) else t
+                                 for t in (clip, lr, b1c, b2c))
+        return scalars[dev]
+
     def upd(p, g, m_s, v_s):
+        clip, lr, b1c, b2c = on(p.device)
         g = g.float() * clip
         m = _load(m_s, p.shape, cfg.moments_dtype)
         v = _load(v_s, p.shape, cfg.moments_dtype, sqrt_map=True)
@@ -196,7 +277,13 @@ def apply_update(params, grads, state: AdamWState, cfg: AdamWConfig):
         return _Update(new_p, _store(m, cfg.moments_dtype),
                        _store(v, cfg.moments_dtype, sqrt_map=True))
 
-    out = tree_map(upd, params, grads, state.m, state.v)
+    def upd_leaf(p, g, m_s, v_s):
+        if spmd.is_placed(p):
+            return _update_placed(upd, p, g, m_s, v_s,
+                                  cfg.moments_dtype == "int8")
+        return upd(p, g, m_s, v_s)
+
+    out = tree_map(upd_leaf, params, grads, state.m, state.v)
     pick = lambda i: tree_map(lambda o: o[i], out,  # noqa: E731
                               is_leaf=lambda x: isinstance(x, _Update))
     return pick(0), AdamWState(step, pick(1), pick(2)), {"grad_norm": gnorm,

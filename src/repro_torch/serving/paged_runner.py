@@ -61,9 +61,10 @@ from repro_torch.configs.base import (GH200, HardwareProfile, ModelConfig,
 from repro_torch.core.blocktable import BlockLoc
 from repro_torch.core.types import RequestState
 from repro_torch.device import resolve_device
-from repro_torch.distributed.tp import (TPMesh, TPPlan, all_reduce,
-                                        head_pspecs, layer_pspecs,
-                                        plan_tp_sharding, shard_slice)
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import Mesh
+from repro_torch.distributed.tp import (TPPlan, head_pspecs, layer_pspecs,
+                                        plan_tp_sharding)
 from repro_torch.kernels.kv_copy import kv_copy
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.quant import kv_scale_shape, quant_store_tokens
@@ -111,7 +112,7 @@ class PagedKVStore:
                  dtype: torch.dtype, *, device=None, staging: int = 64,
                  double_buffer: bool = False, kv_dtype: str = "bf16",
                  tp_plan: Optional[TPPlan] = None,
-                 mesh: Optional[TPMesh] = None):
+                 mesh: Optional[Mesh] = None):
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -399,7 +400,7 @@ class PagedModelRunner(Executor):
         self.serving = serving
         self.tp = int(getattr(serving, "tp", 1) or 1)
         self.tp_plan = plan_tp_sharding(model_cfg, self.tp)
-        self.mesh: Optional[TPMesh] = None
+        self.mesh: Optional[Mesh] = None
         if self.tp_plan.trivial:
             self.devices = [resolve_device(device)]
         else:
@@ -421,12 +422,14 @@ class PagedModelRunner(Executor):
             self._shards: List[Tuple[List[dict], dict]] = [(layers, head)]
         else:
             lp, hp = layer_pspecs(self.tp_plan), head_pspecs(head)
+            pl = [{k: spmd.place_spec(v, lp[k], self.mesh).pieces
+                   for k, v in layer.items()} for layer in layers]
+            ph = {k: spmd.place_spec(v, hp[k], self.mesh).pieces
+                  for k, v in head.items()}
             self._shards = [
-                ([{k: shard_slice(v, lp[k], i, self.tp, dev)
-                   for k, v in layer.items()} for layer in layers],
-                 {k: shard_slice(v, hp[k], i, self.tp, dev)
-                  for k, v in head.items()})
-                for i, dev in enumerate(self.devices)]
+                ([{k: ps[i] for k, ps in layer.items()} for layer in pl],
+                 {k: ps[i] for k, ps in ph.items()})
+                for i in range(self.tp)]
         self._layers, self._head = self._shards[0]
         self.store: Optional[PagedKVStore] = None
         self.kv = None
@@ -648,7 +651,7 @@ class PagedModelRunner(Executor):
         """Each shard's residual stream plus its branch output; the
         branch's partial sums are all-reduced first when ``reduce``."""
         if reduce:
-            parts = all_reduce(parts, self.devices)
+            parts = spmd.all_reduce(parts, self.mesh, "model")
         return [x + p for x, p in zip(xs, parts)]
 
     @torch.no_grad()

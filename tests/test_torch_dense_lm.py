@@ -6,6 +6,7 @@ for gemma3-1b.reduced() at six layers (five local layers with a 32-token
 window and their ring caches, one global layer), with prompts longer than
 the window so the rings wrap. Plus what is not ported yet raises."""
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -140,9 +141,13 @@ def test_decode_attention_and_update_cache_match_reference():
 @pytest.mark.parametrize("what,item", [("moe over a mesh", "item 7b"),
                                        ("train_loss", "item 9")])
 def test_unported_layer_kinds_raise(what, item):
-    """Every layer kind runs now, and training (``item 9``) is ported: its
-    loss runs. What the port still lacks raises, naming its ROADMAP item:
-    expert parallelism (item 7b) and training over a mesh (item 3)."""
+    """Every layer kind runs now; training (``item 9``) and expert
+    parallelism (``item 7b``) are ported: the loss runs, and so does
+    ``moe_ffn`` over a mesh (one data shard, two model shards: the
+    unsharded call's capacity, so its output). What the port still lacks
+    raises, naming its ROADMAP item: the SSM, hybrid, encoder-decoder and
+    frontend families on a mesh (item 3)."""
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import moe
     from repro_torch.models.api import make_demo_inputs
@@ -152,9 +157,13 @@ def test_unported_layer_kinds_raise(what, item):
         batch = make_demo_inputs(cfg, tc.ShapeConfig("t", 16, 2, "train"))
         assert torch.isfinite(LM(cfg).train_loss(params, batch))
         with pytest.raises(NotImplementedError, match="item 3"):
-            train_main(["--arch", cfg.name.removesuffix("-reduced"),
-                        "--reduced", "--device", "cpu", "--mesh", "2,2"])
+            train_main(["--arch", "mamba2-2.7b", "--reduced", "--device",
+                        "cpu", "--mesh", "2,2"])
         return
-    with pytest.raises(NotImplementedError, match=item):
-        moe.moe_ffn(torch.zeros((1, 2, cfg.d_model)),
-                    params["layers"][0]["moe"], cfg.moe, mesh=object())
+    x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator(
+    ).manual_seed(1))
+    p = params["layers"][0]["moe"]
+    got = moe.moe_ffn(x, p, cfg.moe,
+                      mesh=make_mesh((1, 2), ("data", "model"), "cpu"))
+    torch.testing.assert_close(got, moe.moe_ffn(x, p, cfg.moe), **TOL)
+    assert item not in pathlib.Path(moe.__file__).read_text()

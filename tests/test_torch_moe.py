@@ -4,7 +4,7 @@ with tokens dropped at the default capacity factor (the same tokens in
 both packages) and with none dropped, ties in the router logits broken to
 the lower expert index as ``jax.lax.top_k`` breaks them, bf16 within
 2e-2, one token (a decode step: capacity 1), and the expert-parallel
-branch, which raises."""
+branch on a one-data-shard mesh, which needs the mesh's devices."""
 import numpy as np
 import pytest
 
@@ -96,8 +96,18 @@ def test_bf16_matches_reference():
 
 
 def test_expert_parallel_branch_raises():
+    """The expert-parallel branch is ported (held to the reference's in
+    ``tests/test_torch_moe_ep.py``): on a mesh of one data shard and two
+    model shards it gives the unsharded output; a mesh that is only a
+    description, with no devices, raises."""
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch.mesh import make_mesh
     x, p = inputs(T=4)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        moe.moe_ffn(torch.from_numpy(x),
-                    {n: torch.from_numpy(v) for n, v in p.items()},
-                    MoEConfig(8, 2), mesh=object())
+    x, p = torch.from_numpy(x), {n: torch.from_numpy(v) for n, v in p.items()}
+    got = moe.moe_ffn(x, p, MoEConfig(8, 2),
+                      mesh=make_mesh((1, 2), ("data", "model"), "cpu"))
+    torch.testing.assert_close(got, moe.moe_ffn(x, p, MoEConfig(8, 2)),
+                               atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="make_mesh"):
+        moe.moe_ffn(x, p, MoEConfig(8, 2),
+                    mesh=Mesh(("data", "model"), (1, 2)))

@@ -114,8 +114,8 @@ def test_model_flops_and_memory_model_equal_reference(arch):
 
 
 def test_collectives_unknown_on_a_mesh():
-    """With sharded execution not ported, a mesh's collective bytes are
-    unknown: None with the reason, never 0."""
+    """Where no run counted them (the dry-run's meshes), a mesh's
+    collective bytes are unknown: None with the reason, never 0."""
     cfg = tc.get_config("llama3-8b")
     s = roofline.summarize(cfg, tc.SHAPES["decode_32k"], 256,
                            {"flops": 1e12}, None, {"total": 1e9})

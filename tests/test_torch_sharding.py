@@ -40,7 +40,8 @@ def fake_mesh(shape=(4, 2), axes=("data", "model")):
 
 
 def mesh(shape=(4, 2), axes=("data", "model")):
-    return make_mesh(shape, axes)
+    """A mesh by its axes alone (no devices), as the dry-run reads one."""
+    return sh.Mesh(tuple(axes), tuple(shape))
 
 
 def test_pspec_basic():
@@ -103,23 +104,28 @@ def test_shard_applies_in_ctx():
 
 
 def test_shard_over_a_mesh_waits_for_tensor_parallelism():
-    """A larger mesh passes meta tensors (the dry-run) and refuses real
-    ones: ``shard()`` on real tensors is the part of tensor parallelism
-    still to come (ROADMAP item 3). The serving TP mesh is ported:
-    ``make_tp_mesh`` gives CPU shards, and without the cards asks for
-    them or for an explicit device list."""
+    """On a larger mesh ``shard()`` returns meta and real tensors alike:
+    the reference's constraint changes no value, and placing a tensor's
+    pieces is ``spmd.place``'s (training on a mesh, ported). The serving
+    TP mesh and the training mesh give CPU shards, and without the cards
+    ask for them or for an explicit device list."""
     with sh.sharding_ctx(mesh(), sh.TRAIN_RULES):
         m = torch.empty(8, 4, device="meta")
         assert sh.shard(m, ("batch", None)) is m
-        with pytest.raises(NotImplementedError, match="item 3"):
-            sh.shard(torch.ones(8, 4), ("batch", None))
+        x = torch.ones(8, 4)
+        assert sh.shard(x, ("batch", None)) is x
         ns = sh.named_sharding(("batch", "heads"), (8, 4))
         assert ns == sh.NamedSharding(mesh(), ("data", "model"))
     assert sh.named_sharding(("batch",), (8,)) is None
     assert make_tp_mesh(2, "cpu").devices == (torch.device("cpu"),) * 2
+    cpu = make_mesh((4, 2), ("data", "model"), "cpu")
+    assert cpu.devices == (torch.device("cpu"),) * 8
+    assert cpu.shape == mesh().shape and mesh().devices is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="explicit list of 2"):
             make_tp_mesh(2)
+        with pytest.raises(RuntimeError, match="explicit list of 8"):
+            make_mesh((4, 2), ("data", "model"))
 
 
 def test_batch_axes():

@@ -46,6 +46,7 @@ import repro_torch.configs as tc  # noqa: E402
 import repro_torch.distributed.tp as ttp  # noqa: E402
 from repro_torch.core.blocktable import TransferDesc  # noqa: E402
 from repro_torch.core.types import Request  # noqa: E402
+from repro_torch.distributed import spmd  # noqa: E402
 from repro_torch.kernels.quant import quant_store_tokens  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.hostenv import ensure_host_devices  # noqa: E402
@@ -220,22 +221,23 @@ def test_plan_and_specs_equal_reference(arch):
 def test_shard_slice_and_all_reduce():
     """A shard is the contiguous i-th piece along the spec's "model" dim
     (all of it when replicated), a tensor of its own; the all-reduce adds
-    the partials in shard order in their dtype."""
+    the partials in shard order in their dtype. The runner takes both from
+    ``distributed/spmd.py`` over ``make_tp_mesh``'s 1-D mesh."""
+    mesh = make_tp_mesh(4, "cpu")
     x = torch.arange(2 * 8 * 3, dtype=torch.float32).reshape(2, 8, 3)
-    parts = [ttp.shard_slice(x, (None, "model"), i, 4, "cpu")
-             for i in range(4)]
+    parts = spmd.place_spec(x, (None, "model"), mesh).pieces
     for i, p in enumerate(parts):
         assert p.is_contiguous() and p.shape == (2, 2, 3)
         assert torch.equal(p, x[:, 2 * i:2 * i + 2])
     assert torch.equal(torch.cat(parts, 1), x)
-    rep = ttp.shard_slice(x, (), 1, 4, "cpu")
+    rep = spmd.place_spec(x, (), mesh).pieces[1]
     assert torch.equal(rep, x) and rep.data_ptr() != x.data_ptr()
     with pytest.raises(ValueError, match="not divisible"):
-        ttp.shard_slice(x, ("model",), 0, 4, "cpu")
+        spmd.place_spec(x, ("model",), mesh)
     h = [torch.tensor([1.0, 2.0 ** -9], dtype=torch.bfloat16),
          torch.tensor([2.0 ** 8, 2.0 ** -9], dtype=torch.bfloat16),
          torch.tensor([-(2.0 ** 8), 1.0], dtype=torch.bfloat16)]
-    out = ttp.all_reduce(h, [torch.device("cpu")] * 3)
+    out = spmd.all_reduce(h, make_tp_mesh(3, "cpu"), "model")
     want = (h[0] + h[1]) + h[2]          # in order, rounded in bf16
     assert all(o.dtype == torch.bfloat16 and torch.equal(o, want)
                for o in out)

@@ -1,0 +1,145 @@
+"""The reference's runs on a (data, model) mesh, for the port's mesh tests
+(``tests/test_torch_moe_ep.py``, ``tests/test_torch_mesh_train.py``).
+
+Run in a process of its own, with four XLA host devices forced before jax
+loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
+
+    python tests/torch_mesh_ref.py moe OUT.pkl
+    python tests/torch_mesh_ref.py train OUT.pkl {float32,int8}
+
+It pickles numpy trees. The mesh is a ``jax.sharding.Mesh`` over the
+devices, whose axes are Auto: the reference's sharding constraints run
+there, while ``jax.make_mesh``'s Explicit axes make its own launcher
+fail (ROADMAP.md §3). Where the reference's ``shard_map`` refuses its own
+``out_specs`` (no ``psum`` in the body, so jax cannot infer the output's
+replication over "model": a mesh with one model shard, and the ``gcd``
+fallback), the body runs again with that check off, which changes no
+value; the case records that it raised.
+"""
+import dataclasses
+import math
+import pickle
+import sys
+
+import numpy as np
+
+# moe_ffn cases: (name, mesh shape, experts, skewed routing)
+MOE_CASES = (("2x2", (2, 2), 4, False), ("1x4", (1, 4), 4, False),
+             ("2x1", (2, 1), 4, False), ("gcd_E6_M4", (1, 4), 6, False),
+             ("drops", (2, 2), 4, True))
+MOE_B, MOE_S = 4, 8
+# train steps: reduced configs in fp32, batch 4 x 32 in 2 microbatches
+ARCHS = ("llama3-8b", "gemma3-1b", "qwen3-moe-30b-a3b")
+TRAIN_B, TRAIN_S, TRAIN_MB = 4, 32, 2
+
+
+def moe_inputs(cfg, E, skewed, seed):
+    """x (B, S, d) and the MoE weights in fp32 from a numpy seed. Skewed:
+    the first half of the batch (data shard 0 of two) leans to expert 0,
+    the second half away from it."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"router": rng.standard_normal((d, E)) / np.sqrt(d),
+         "w_gate": rng.standard_normal((E, d, f)) / np.sqrt(d),
+         "w_up": rng.standard_normal((E, d, f)) / np.sqrt(d),
+         "w_down": rng.standard_normal((E, f, d)) / np.sqrt(f)}
+    x = rng.standard_normal((MOE_B, MOE_S, d))
+    if skewed:
+        u = rng.standard_normal(d)
+        u /= np.linalg.norm(u)
+        p["router"][:, 0] = 4.0 * u
+        sign = np.where(np.arange(MOE_B) < MOE_B // 2, 1.0, -1.0)
+        x = 0.3 * x + 3.0 * sign[:, None, None] * u
+    return (x.astype(np.float32),
+            {k: v.astype(np.float32) for k, v in p.items()})
+
+
+def auto_mesh(shape):
+    import jax
+    from jax.sharding import Mesh
+    devs = np.array(jax.devices()[:math.prod(shape)]).reshape(shape)
+    return Mesh(devs, ("data", "model"))
+
+
+def _unchecked_shard_map():
+    """``jax.shard_map`` with ``check_vma=False``: the reference's body
+    and specs, without the replication check it fails."""
+    import functools
+    import jax
+    orig = jax.shard_map
+    jax.shard_map = functools.partial(orig, check_vma=False)
+    return lambda: setattr(jax, "shard_map", orig)
+
+
+def moe_runs():
+    import jax
+    import jax.numpy as jnp
+    import repro.configs as rc
+    from repro.distributed.sharding import TRAIN_RULES, sharding_ctx
+    from repro.models.moe import moe_ffn
+    base = rc.get_config("qwen3-moe-30b-a3b").reduced()
+    out = {}
+    for i, (name, shape, E, skewed) in enumerate(MOE_CASES):
+        mcfg = dataclasses.replace(base.moe, num_experts=E)
+        x, p = moe_inputs(base, E, skewed, seed=i)
+        xj, pj = jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}
+        # a new function each trace: jit's cache does not see the context
+        raised = None
+        with sharding_ctx(auto_mesh(shape), TRAIN_RULES):
+            try:
+                mesh_out = jax.jit(lambda a, b: moe_ffn(a, b, mcfg))(xj, pj)
+            except ValueError as e:
+                raised = str(e).splitlines()[0]
+                restore = _unchecked_shard_map()
+                mesh_out = jax.jit(lambda a, b: moe_ffn(a, b, mcfg))(xj, pj)
+                restore()
+        whole = jax.jit(lambda a, b: moe_ffn(a, b, mcfg))(xj, pj)
+        out[name] = dict(x=x, params=p, mesh=np.asarray(mesh_out),
+                         whole=np.asarray(whole), raised=raised)
+    return out
+
+
+def train_runs(moments):
+    import jax
+    import repro.configs as rc
+    from repro.data.pipeline import SyntheticPacked
+    from repro.distributed.sharding import TRAIN_RULES, sharding_ctx
+    from repro.models.lm import LM
+    from repro.optimizer import adamw
+    from repro.training import step as steplib
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    mesh = auto_mesh((2, 2))
+    out = {}
+    for arch in ARCHS:
+        cfg = dataclasses.replace(rc.get_config(arch).reduced(),
+                                  dtype="float32")
+        lm = LM(cfg)
+        batch = next(iter(SyntheticPacked(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                          seed=0)))
+        out[arch] = {"batch": batch}
+        for md in moments:
+            opt = adamw.AdamWConfig(moments_dtype=md, warmup_steps=1)
+            fn = steplib.make_train_step(lm, opt, microbatches=TRAIN_MB)
+            with sharding_ctx(mesh, TRAIN_RULES):
+                state = steplib.init_train_state(lm, jax.random.PRNGKey(0),
+                                                 opt)
+                new, met = jax.jit(fn)(state, batch)
+            out[arch][md] = dict(loss=float(met["loss"]),
+                                 grad_norm=float(met["grad_norm"]),
+                                 state=to_np(new))
+            out[arch]["params0"] = to_np(state.params)
+        if cfg.moe is not None and "float32" in moments:
+            # the same step with no mesh: capacity counts the whole batch
+            opt = adamw.AdamWConfig(warmup_steps=1)
+            fn = steplib.make_train_step(lm, opt, microbatches=TRAIN_MB)
+            _, met = jax.jit(fn)(steplib.init_train_state(
+                lm, jax.random.PRNGKey(0), opt), batch)
+            out[arch]["loss_no_mesh"] = float(met["loss"])
+    return out
+
+
+if __name__ == "__main__":
+    what, path = sys.argv[1], sys.argv[2]
+    res = moe_runs() if what == "moe" else train_runs(sys.argv[3:])
+    with open(path, "wb") as fh:
+        pickle.dump(res, fh)
