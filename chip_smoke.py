@@ -59,8 +59,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    whose local layers have a 32-token window: lossless under rotation, and
    the card's streams equal the CPU's from the same weights;
 11. families: ``RealExecutor`` behind ``ServingEngine`` at full width in
-   bf16 on qwen3-moe-30b-a3b (48 layers of 128 experts, 61 GB of weights),
-   mamba2-2.7b (SSM) and gemma3-1b (head_dim 256, window 512), 4 requests
+   bf16 on qwen3-moe-30b-a3b (24 of its 48 layers of 128 experts, 30.5 GB
+   of weights), mamba2-2.7b (SSM, 16 of its 64 layers: ``FAMILY_DEPTH``)
+   and gemma3-1b (head_dim 256, window 512), 4 requests
    each, with ample HBM (traced: device busy share) and with 77 blocks,
    which rotates (equal streams; flash launched where there is attention);
    paligemma-3b (256 image embeddings before 64 tokens) and
@@ -127,9 +128,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
    within 1e-5 relative, params after 2 steps within atol 1e-5, rtol
    1e-4), and a checkpoint saved on (2, 2) restored on (1, 2) and with no
    mesh to equal leaves. (d) (a) over four cards, only where the machine
-   has them (``scripts/mesh_cards.py`` runs it there). Phase 3 also checks
-   flash at this phase's shard heads (gemma3-1b (2, 1, 256), qwen3-moe
-   (16, 2, 128)) and ``FlashAttention``'s gradient at (2, 1, 256).
+   has them (``scripts/mesh_cards.py --phase 15`` runs it there). Phase 3
+   also checks flash at this phase's shard heads (gemma3-1b (2, 1, 256),
+   qwen3-moe (16, 2, 128)) and ``FlashAttention``'s gradient at (2, 1,
+   256);
+16. the SSM, hybrid, frontend and encoder-decoder families on a mesh
+   (target 90 s; cell S11), four shards stacked on the card: (a)
+   mamba2-2.7b at full width and depth (64 layers, d_in 5120, 80 heads,
+   40 a model shard) through the launcher with no mesh and with ``--mesh
+   2,2 --device cuda:0,cuda:0,cuda:0,cuda:0``, seeded bf16 weights,
+   ``SyntheticPacked`` seed 0, 4 x 1024 in 2 microbatches, int8 moments,
+   remat, 2 steps: losses within 1e-3 of no mesh's, the launcher's step
+   walls, the state after 2 steps against no mesh's (each parameter's sum
+   of |x| and each int8 moment's dequantised norm within 0.1, parameters
+   and moments apart) with the drawn state as the frozen-update control
+   (it must read past 0.1 on both), bytes a position == the dry-run's, then
+   one traced step through ``make_train_step(mesh=)``: busy share, peak
+   memory, collective bytes by kind and the top device operations. (b)
+   paligemma-3b (256 image embeddings + 768 tokens) and
+   seamless-m4t-medium (1024 frames + 1024 tokens) at full width and
+   depth, 2 rows, embeddings from a seeded generator, int8 moments, 2
+   steps through ``make_train_step`` with no mesh and on (2, 2), in bf16
+   (losses within ``FAMILY_BF16_TOL``) and in fp32 (within 1e-5
+   relative), flash launched at each shard's heads (counted). (c) the
+   reduced mamba2, jamba (8 layers), paligemma and seamless in fp32 on
+   (2, 2), card against CPU (losses within 1e-6 relative, fp32 moments
+   after 2 steps within 1e-6, params within atol 1e-5 + rtol 1e-4 but
+   where the first step's gradient lies within ``ADAM_FLAT`` eps of zero:
+   at most ``MAX_FLAT`` such elements apart, within 2 lr a step), and a
+   checkpoint of the reduced mamba2 saved on (2, 2) restored on (1, 2).
+   Phase 3 also checks flash at this phase's shard heads (paligemma (4,
+   1, 256) causal, seamless (8, 8, 64) non-causal and cross-attention)
+   and ``FlashAttention``'s gradient at seamless's encoder shard.
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -423,12 +453,16 @@ def tp_shard_checks(torch, ops, ref, cfg, errs, dev="cuda"):
 
 
 def mesh_shard_checks(torch, ops, ref, errs, dev="cuda"):
-    """Flash at phase 15's shard heads against its plain version: a (2, 2)
-    mesh's shard of gemma3-1b (2/1/256, causal, window 512) and a (1, 2)
-    mesh's of qwen3-moe-30b-a3b (16/2/128, causal), 1024 tokens a row, in
-    bf16 and fp32; and ``FlashAttention``'s gradient (the kernel forward,
-    the plain backward) at gemma3-1b's shard heads against autograd
-    through the plain version in fp32 (on the same inputs, upcast)."""
+    """Flash at the mesh phases' shard heads against its plain version:
+    phase 15's (2, 2) shard of gemma3-1b (2/1/256, causal, window 512) and
+    (1, 2) shard of qwen3-moe-30b-a3b (16/2/128, causal), 1024 tokens a
+    row; phase 16's (2, 2) shards of paligemma-3b (4/1/256, causal over
+    1024) and seamless-m4t-medium (8/8/64: the non-causal encoder over 1024
+    frames, the cross-attention of 1024 tokens over 1024 frames), one row;
+    in bf16 and fp32. And ``FlashAttention``'s gradient (the kernel
+    forward, the plain backward) at gemma3-1b's and seamless's encoder
+    shard heads against autograd through the plain version in fp32 (on
+    the same inputs, upcast)."""
     from repro_torch.models.attention import FlashAttention
     g = torch.Generator(device=dev).manual_seed(15)
     S = 1024
@@ -446,23 +480,45 @@ def mesh_shard_checks(torch, ops, ref, errs, dev="cuda"):
             check("flash_attention", dname, f"{label} H/Hkv/D={H}/{Hkv}/{D},"
                   f" B=2 T={S} causal window {win}", got, want, TOL[dname],
                   errs)
-    for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        q, k, v = (torch.randn((1, S, h, 256), generator=g, device=dev).to(
-            dt) for h in (2, 1, 1))
-        dout = torch.randn((1, S, 2, 256), generator=g, device=dev).to(dt)
-        grads = []
-        for fn, up in ((lambda a, b, c: FlashAttention.apply(
-                a, b, c, True, 512, 0, None), dt),
-                (lambda a, b, c: ref.flash_attention_ref(
-                    a, b, c, causal=True, window=512), torch.float32)):
-            live = [x.detach().to(up).requires_grad_() for x in (q, k, v)]
-            grads.append(torch.autograd.grad(fn(*live), live, dout.to(up)))
-        torch.cuda.synchronize()
-        for name, a, b in zip(("dq", "dk", "dv"), *grads):
-            check("flash_attention", dname, f"FlashAttention gradient {name}"
-                  f" at gemma3-1b's (2, 2) shard heads 2/1/256, T={S}, "
-                  f"window 512, against autograd through the plain version",
-                  a, b, TOL[dname], errs)
+    # phase 16's shards, one row a position (2 x 1024 over (2, 2))
+    for label, H, Hkv, D, Sq, causal in (
+            ("paligemma-3b (2, 2) shard", 4, 1, 256, S, True),
+            ("seamless-m4t-medium (2, 2) encoder shard", 8, 8, 64, S, False),
+            ("seamless-m4t-medium (2, 2) cross-attention shard, Sq 1024 "
+             "over 1024 frames", 8, 8, 64, S, False)):
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q = torch.randn((1, Sq, H, D), generator=g, device=dev).to(dt)
+            k = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(dt)
+            v = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(dt)
+            got = ops.flash_attention(q, k, v, causal=causal, force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check("flash_attention", dname, f"{label} H/Hkv/D={H}/{Hkv}/{D},"
+                  f" B=1 Sq={Sq} Skv={S} "
+                  f"{'causal' if causal else 'non-causal'}",
+                  got, want, TOL[dname], errs)
+    for label, H, Hkv, D, causal, win in (
+            ("gemma3-1b's (2, 2) shard heads 2/1/256, window 512", 2, 1, 256,
+             True, 512),
+            ("seamless-m4t-medium's (2, 2) encoder shard heads 8/8/64, "
+             "non-causal", 8, 8, 64, False, 0)):
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v = (torch.randn((1, S, h, D), generator=g, device=dev).to(
+                dt) for h in (H, Hkv, Hkv))
+            dout = torch.randn((1, S, H, D), generator=g, device=dev).to(dt)
+            grads = []
+            for fn, up in ((lambda a, b, c: FlashAttention.apply(
+                    a, b, c, causal, win, 0, None), dt),
+                    (lambda a, b, c: ref.flash_attention_ref(
+                        a, b, c, causal=causal, window=win), torch.float32)):
+                live = [x.detach().to(up).requires_grad_() for x in (q, k, v)]
+                grads.append(torch.autograd.grad(fn(*live), live,
+                                                 dout.to(up)))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), *grads):
+                check("flash_attention", dname, f"FlashAttention gradient "
+                      f"{name} at {label}, T={S}, against autograd through "
+                      f"the plain version", a, b, TOL[dname], errs)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1506,9 +1562,15 @@ def continuity(torch, lm, params, batch, steps, label):
 
 
 
+# phase 11's depth cuts, so the script stays within its time (widths are
+# never cut; phase 16 trains mamba2-2.7b at its full depth)
+FAMILY_DEPTH = {"qwen3-moe-30b-a3b": 24, "mamba2-2.7b": 16}
+
+
 def families_phase(torch):
     """Every model family of the repo on the card at full width through
-    the port's LM: qwen3-moe-30b-a3b (MoE, 48 layers), mamba2-2.7b (SSM)
+    the port's LM: qwen3-moe-30b-a3b (MoE, 24 of its 48 layers) and
+    mamba2-2.7b (SSM, 16 of 64: ``FAMILY_DEPTH``)
     and gemma3-1b (head_dim 256, window 512) served by RealExecutor behind
     ServingEngine, with ample and tight HBM; paligemma-3b (256 image
     embeddings) and seamless-m4t-medium (an encoder over 1024 frames)
@@ -1525,6 +1587,10 @@ def families_phase(torch):
                        ("mamba2-2.7b", (200, 1001)),
                        ("gemma3-1b", (600, 1001))):
         cfg = get_config(arch)
+        if arch in FAMILY_DEPTH:
+            cfg = dataclasses.replace(cfg, num_layers=FAMILY_DEPTH[arch])
+            log(f"{arch}: {FAMILY_DEPTH[arch]} of its "
+                f"{get_config(arch).num_layers} layers (FAMILY_DEPTH)")
         gc.collect()
         torch.cuda.empty_cache()
         log(f"{arch}: device memory allocated before its weights "
@@ -1595,7 +1661,7 @@ def train_phase(torch):
     whose loss must fall; (c) the reduced gemma3-1b in fp32: loss and every
     gradient on the card (the flash kernel forward) against the CPU's.
     Returns the kernel launches of (a) and its resume, and (a)'s losses
-    and ``checkpoint_sums`` of its state at step 3."""
+    and ``checkpoint_measures`` of its state at step 3."""
     import importlib.util
     import shutil
     from repro_torch.configs import ShapeConfig, get_config
@@ -1625,7 +1691,8 @@ def train_phase(torch):
         wall = time.perf_counter() - t0
         flash = ops.launch_counts()["flash_attention"]
         peak = torch.cuda.max_memory_allocated()
-        sums3 = checkpoint_sums(torch, Path(ck) / "step_00000003", "cuda")
+        sums3 = checkpoint_measures(torch, Path(ck) / "step_00000003",
+                                    "cuda")
         shutil.rmtree(Path(ck) / f"step_{steps:08d}")
         t0 = time.perf_counter()
         resumed = train_main(args + ["--resume"])
@@ -2167,12 +2234,20 @@ MESH_STACK = ["cuda:0"] * 4
 # the batch or a wrong mask count reads further off
 MESH_TOL = 1e-3
 # the same run's state after its steps against one card's, leaf by leaf:
-# the largest relative gap of the sums of |x|. The losses cannot tell a
-# step that leaves the state as it was (at the warm-up's learning rate the
-# bf16 weights barely move in 3 steps); its zero moments read 1 here (the
-# frozen-update control, measured in each run), a sound mesh step
-# 1.376e-02 stacked and 1.304e-02 over four cards (bf16 gradients added in
-# another order move a small leaf's int8 scale by about 1%)
+# the largest relative gap of the leaves' measures (``leaf_measures``).
+# The losses cannot tell a step that leaves the state as it was (at the
+# warm-up's learning rate the bf16 weights barely move in 3 steps); its
+# zero moments read 1 here (the frozen-update control, measured in each
+# run), a sound mesh step 1.376e-02 stacked and 1.304e-02 over four cards
+# (bf16 gradients added in another order move a small leaf's int8 scale
+# by about 1%). Phase 16 (a) holds mamba2-2.7b's parameters and moments
+# to it apart, and its frozen control must read past it on both. An int8
+# moment's measure, the norm of its dequantised values, is linear in its
+# leaf's gradient scale: a leaf whose gradient is off by 10% in scale
+# moves its first moment's by 0.1 (its codes alone follow no scale, being
+# relative to their block's maximum). mamba2 reads 4.367e-02 stacked,
+# 6.025e-02 over four cards, 5.208e-02 for no mesh with one microbatch
+# against two (the noise of bf16 adds in another order)
 STATE_TOL = 0.1
 # qwen3-moe's bf16 losses on (1, 2) against no mesh: 7.969e-03 apart
 # (1.214e-02 on an earlier tree): the partials add in another order and
@@ -2181,42 +2256,126 @@ STATE_TOL = 0.1
 MOE_MESH_TOL = 2e-2
 
 
-def checkpoint_sums(torch, directory, dev):
-    """Each leaf's sum of |x| in fp64, on ``dev``, of a checkpoint
-    directory of the port's format, read leaf by leaf."""
-    manifest = json.loads((directory / "manifest.json").read_text())
-    out = []
-    for meta in manifest["leaves"]:
-        arr = np.load(directory / f"leaf_{meta['i']}.npy")
-        t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-             if meta["dtype"] == "bfloat16" else torch.from_numpy(arr))
-        out.append(float(t.to(dev).double().abs().sum()))
+def worst(xs):
+    """The largest of ``xs``, NaN where any is NaN (``max`` keeps a NaN
+    only where it comes first), so that ``not (worst(xs) <= tol)`` fails
+    on a NaN."""
+    return float(np.max(np.asarray(list(xs), dtype=np.float64)))
+
+
+def leaf_measures(torch, leaves):
+    """Each leaf's measure, in fp64: its sum of |x|; for an int8 moment's
+    codes (the next leaf being their fp32 block scales, as AdamW stores
+    them) the L2 norm of the dequantised values. ``leaves`` is an iterable
+    of tensors in a train state's leaf order."""
+    out, codes = [], None
+    for t in leaves:
+        if codes is not None:
+            deq = codes.double().reshape(*t.shape, -1) * t.double()[..., None]
+            out[-1] = float(torch.linalg.vector_norm(deq))
+            codes = None
+        elif t.dtype == torch.int8:
+            codes = t
+        out.append(float(t.double().abs().sum()))
     return out
 
 
-def state_sums(torch, state):
-    """``checkpoint_sums`` of a train state held in memory (whole or
-    laid over a mesh), leaf by leaf in the checkpoint's order."""
+def checkpoint_measures(torch, directory, dev):
+    """``leaf_measures`` of a checkpoint directory of the port's format,
+    read leaf by leaf onto ``dev``."""
+    manifest = json.loads((directory / "manifest.json").read_text())
+
+    def leaves():
+        for meta in manifest["leaves"]:
+            arr = np.load(directory / f"leaf_{meta['i']}.npy")
+            t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                 if meta["dtype"] == "bfloat16" else torch.from_numpy(arr))
+            yield t.to(dev)
+    return leaf_measures(torch, leaves())
+
+
+def state_measures(torch, state):
+    """``leaf_measures`` of a train state held in memory (whole or laid
+    over a mesh), in the checkpoint's leaf order."""
     from repro_torch.distributed import spmd
     from repro_torch.tree import flatten
-    return [float((spmd.gather(x) if spmd.is_placed(x) else x)
-                  .double().abs().sum()) for x in flatten(state)[0]]
+    return leaf_measures(torch, (spmd.gather(x) if spmd.is_placed(x) else x
+                                 for x in flatten(state)[0]))
 
 
 def state_gap(got, want):
-    """The largest relative gap between two lists of per-leaf sums."""
-    return max(abs(a - b) / max(abs(b), 1e-30)
-               for a, b in zip(got, want, strict=True))
+    """The largest relative gap between two lists of leaf measures."""
+    return worst(abs(a - b) / max(abs(b), 1e-30)
+                 for a, b in zip(got, want, strict=True))
 
 
-def launch_with_state(torch, args, dev):
+def leaf_names(tree, prefix=""):
+    """Dotted names of a tree's leaves in the checkpoint's leaf order
+    (sorted dict keys; named tuples by field)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        fields = getattr(tree, "_fields", None) or range(len(tree))
+        return [n for f, v in zip(fields, tree)
+                for n in leaf_names(v, f"{prefix}{f}.")]
+    return [prefix[:-1]]
+
+
+def split_gaps(got, want, names):
+    """(the parameters' state gap, the moments' state gap) of two lists of
+    leaf measures in the order of ``names`` (``leaf_names`` of a train
+    state). An int8 moment counts once, by its dequantised norm: its
+    scales' own measures are left out."""
+    par = [i for i, n in enumerate(names) if n.startswith("params.")]
+    opt = [i for i, n in enumerate(names)
+           if not n.startswith("params.") and not n.endswith(".scale")]
+    return tuple(state_gap([got[i] for i in ix], [want[i] for i in ix])
+                 for ix in (par, opt))
+
+
+def widest_gaps(got, want, names, n=3):
+    """The ``n`` leaves whose measures lie relatively furthest apart."""
+    gaps = sorted(((abs(a - b) / max(abs(b), 1e-30), name) for a, b, name
+                   in zip(got, want, names, strict=True)
+                   if not name.endswith(".scale")), reverse=True)
+    return ", ".join(f"{name} {g:.3e}" for g, name in gaps[:n])
+
+
+class _Tee:
+    """A text stream that writes to several."""
+
+    def __init__(self, *outs):
+        self.outs = outs
+
+    def write(self, text):
+        for out in self.outs:
+            out.write(text)
+        return len(text)
+
+    def flush(self):
+        for out in self.outs:
+            out.flush()
+
+
+def launch_with_state(torch, args, dev, step_ms=None):
     """The launcher run with ``args`` and a checkpoint at its end: its
-    losses and ``checkpoint_sums`` of its last state."""
+    losses and ``checkpoint_measures`` of its last state. ``step_ms``, a
+    list, receives the wall of each step the launcher logs (``--log-every
+    1``: all), as it prints it."""
+    import contextlib
+    import io
+    import re
     from repro_torch.launch.train import main as train_main
+    out = io.StringIO()
     with tempfile.TemporaryDirectory() as ck:
-        losses = train_main(args + ["--ckpt-dir", ck])
+        with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+            losses = train_main(args + ["--ckpt-dir", ck])
         last = max(Path(ck).glob("step_*"))
-        return losses, checkpoint_sums(torch, last, dev)
+        if step_ms is not None:
+            step_ms.extend(float(ms) for ms in re.findall(
+                r"^step +\d+ loss \S+ \((\d+) ms", out.getvalue(), re.M))
+        return losses, checkpoint_measures(torch, last, dev)
 
 
 def route_drops(torch, moe):
@@ -2232,34 +2391,50 @@ def route_drops(torch, moe):
     return counting, seen
 
 
-def mesh_step_profile(torch, step_fn, state, batches, mesh, label):
-    """A warm-up step, two timed steps (mean wall, ending in a
-    synchronize) and one traced step: (state, step seconds, traced
-    seconds, device ms by family, collective bytes of the traced step
-    by position)."""
+def mesh_step_profile(torch, step_fn, state, batches, mesh, label,
+                      warm_up=True):
+    """A warm-up step on the first batch (unless the caller's runs warmed
+    this path already), timed steps on the batches up to the last (mean
+    wall, ending in a synchronize) and one traced step on the last:
+    (state, step seconds (the traced step's, where no batch is left to
+    time), traced seconds, device ms by family, collective bytes of the
+    traced step by position). Logs the trace's top device operations
+    too."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.distributed import spmd
-    state, _ = step_fn(state, batches[0])
-    torch.cuda.synchronize()
+    from repro_torch.launch.inspect_hlo import top_ops
+    if warm_up:
+        state, _ = step_fn(state, batches[0])
+        torch.cuda.synchronize()
+    timed = batches[1:-1] if warm_up else batches[:-1]
     t0 = time.perf_counter()
-    for b in batches[1:3]:
+    for b in timed:
         state, m = step_fn(state, b)
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / 2
+    step_s = (time.perf_counter() - t0) / max(len(timed), 1)
     spmd.reset_collective_bytes()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, m = step_fn(state, batches[3])
+        state, m = step_fn(state, batches[-1])
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
+    if not timed:
+        step_s = traced_s
     coll = [spmd.collective_bytes(r) for r in range(mesh.size)]
     fams = device_time_by_family(prof)
     busy = sum(fams.values())
-    log(f"{label}: wall {step_s * 1e3:.1f} ms a step (mean of 2 after a "
-        f"warm-up); traced step wall {traced_s * 1e3:.1f} ms, device busy "
-        f"{busy:.1f} ms ({busy / (traced_s * 1e3):.3f} of wall), by family "
+    log(f"{label}: wall {step_s * 1e3:.1f} ms a step ("
+        + (f"mean of {len(timed)}{' after a warm-up' if warm_up else ''}"
+           if timed else "the traced step's") + "); traced step "
+        f"wall {traced_s * 1e3:.1f} ms, device busy {busy:.1f} ms "
+        f"({busy / (traced_s * 1e3):.3f} of wall), by family "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in
                     sorted(fams.items(), key=lambda kv: -kv[1])))
+    tops = sorted(top_ops(prof, mesh.devices[0]).items(),
+                  key=lambda kv: -kv[1][0])[:5]
+    log(f"{label}: top device operations of the traced step (ms, calls): "
+        + "; ".join(f"{name[:60]} {ms:.1f} ({calls})"
+                    for name, (ms, calls) in tops))
     return state, step_s, traced_s, fams, coll
 
 
@@ -2320,7 +2495,7 @@ def mesh_phase(torch, train_losses, train_sums, dev="cuda"):
         f"remat: losses {losses} against phase 12's "
         f"{train_losses[:steps]}: max |gap| {gap:.3e} (tolerance "
         f"{MESH_TOL}); its state after {steps} steps against phase 12's: "
-        f"largest relative gap of a leaf's sum of |x| {sgap:.3e} "
+        f"largest relative gap of a leaf's measure {sgap:.3e} "
         f"(tolerance {STATE_TOL}); {wall:.2f} s for {steps} steps and a "
         f"checkpoint (weights drawn and placed at start); peak device "
         f"memory {peak} B; flash launches "
@@ -2330,7 +2505,7 @@ def mesh_phase(torch, train_losses, train_sums, dev="cuda"):
         f"{spmd.collective_bytes()}")
     if not all(np.isfinite(losses)) or gap > MESH_TOL:
         raise AssertionError(f"mesh (a): losses {losses} vs {train_losses}")
-    if sgap > STATE_TOL:
+    if not sgap <= STATE_TOL:
         raise AssertionError(f"mesh (a): state gap {sgap} to phase 12's")
     if flash != 2 * fwd:
         raise AssertionError(f"mesh (a): flash launched {flash} times, "
@@ -2347,7 +2522,7 @@ def mesh_phase(torch, train_losses, train_sums, dev="cuda"):
         mesh=mesh)
     # the frozen-update control: the state a step that changes nothing
     # leaves (the one just drawn) against phase 12's at step 3
-    frozen = state_gap(state_sums(torch, state), train_sums)
+    frozen = state_gap(state_measures(torch, state), train_sums)
     log(f"mesh (a) frozen-update control: the drawn state against phase "
         f"12's at step {steps}: largest relative gap {frozen:.3e} (must "
         f"exceed the tolerance {STATE_TOL}; the mesh run's {sgap:.3e})")
@@ -2533,7 +2708,7 @@ def mesh_phase(torch, train_losses, train_sums, dev="cuda"):
             f"phase 12's {dgap:.3e} (tolerance {MESH_TOL}); state against "
             f"phase 12's {dsgap:.3e} (tolerance {STATE_TOL}); "
             f"{time.perf_counter() - t0:.2f} s")
-        if dgap > MESH_TOL or dsgap > STATE_TOL:
+        if not (dgap <= MESH_TOL and dsgap <= STATE_TOL):
             raise AssertionError(f"mesh (d): {spread} vs {train_losses}")
     else:
         log(f"mesh (d) not run: it needs four cards, torch sees "
@@ -2542,6 +2717,343 @@ def mesh_phase(torch, train_losses, train_sums, dev="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 15 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+# --------------------------------------------------------------- phase 16
+
+# the families of phase 16 (c), reduced in fp32: jamba at one whole period
+FAMILY_REDUCED = (("mamba2-2.7b", {}), ("jamba-1.5-large-398b",
+                                        {"num_layers": 8}),
+                  ("paligemma-3b", {}), ("seamless-m4t-medium", {}))
+# phase 16 (c)'s losses, card against CPU (relative)
+FAMILY_CPU_RTOL = 1e-6
+# phase 16 (b)'s losses on (2, 2) against no mesh: in bf16 the
+# row-parallel partials round before they add, and an encoder-decoder has
+# 60 such sums a step (seamless reads 1.197e-03, paligemma 6.2e-05); in
+# fp32 the same comparison reads 0.0 for both, and holds the mesh's
+# arithmetic
+FAMILY_BF16_TOL = 3e-3
+FAMILY_FP32_RTOL = 1e-5
+# phase 16 (c), as tests/test_torch_mesh_families.py holds the mesh to the
+# reference: Adam's first step moves an element by lr g / (|g| + eps), so
+# where the clipped gradient lies within ADAM_FLAT eps of zero that step
+# reads the gradient's last bits, which the card adds in another order.
+# Such elements are held within 2 lr a step, at most MAX_FLAT a config
+# past atol 1e-5 + rtol 1e-4: 1 measured (reduced mamba2's w_x, first
+# gradient ~0, the second step's m^ / sqrt(v^) 0.7350 on both), 0 in the
+# others; every other element within atol + rtol
+ADAM_FLAT = 100.0
+MAX_FLAT = 2
+
+
+def fp32_states_apart(got, want, first_grads, opt):
+    """Two train states with fp32 moments after the same two AdamW steps
+    from one state (card and CPU), and the CPU's clipped gradients of the
+    first step: (the moments' largest |got - want|; the largest gap past
+    atol 1e-5 + rtol 1e-4 of an element whose first gradient is not flat
+    (``ADAM_FLAT``), which must be <= 0; the flat elements' largest gap,
+    held within 2 lr a step; how many flat elements lie past atol + rtol;
+    the first few of them as "leaf[index] gap, first gradient"). NaN
+    anywhere reads NaN or, in a flat element, counts."""
+    from repro_torch.distributed import spmd
+    from repro_torch.tree import flatten
+
+    def whole(tree):
+        return [spmd.gather(x).cpu().double() if spmd.is_placed(x)
+                else x.cpu().double() for x in flatten(tree)[0]]
+    mom = worst(float((a - b).abs().max()) for a, b in zip(
+        whole(got.opt.m) + whole(got.opt.v),
+        whole(want.opt.m) + whole(want.opt.v), strict=True))
+    off_rest, flat_gap, flat_apart, seen = [], [], 0, []
+    for name, a, b, g in zip(leaf_names(got.params), whole(got.params),
+                             whole(want.params), first_grads, strict=True):
+        gap = (a - b).abs()
+        past = gap - (1e-5 + 1e-4 * b.abs())
+        flat = g.abs() < ADAM_FLAT * opt.eps
+        off_rest.append(float(past[~flat].max()) if (~flat).any() else
+                        -1.0)
+        flat_gap.append(float(gap[flat].max()) if flat.any() else 0.0)
+        apart = (~(past <= 0) & flat).nonzero().tolist()
+        flat_apart += len(apart)
+        seen += [f"{name}{i} {float(gap[tuple(i)]):.3e}, "
+                 f"{float(g[tuple(i)]):.1e}" for i in apart[:4 - len(seen)]]
+    return mom, worst(off_rest), worst(flat_gap), flat_apart, seen
+
+
+def mesh_families_phase(torch):
+    """Training the SSM, hybrid, frontend and encoder-decoder families on a
+    (data, model) mesh stacked on the card (cell S11): (a) mamba2-2.7b at
+    full width and depth through the launcher with no mesh and on (2, 2),
+    2 steps each with a checkpoint: losses, the launcher's step walls, the
+    state against the no-mesh run's with the frozen-update control, the
+    bytes a position holds against the dry-run, then one traced step
+    through ``make_train_step`` (busy, peak, collective bytes by kind, top
+    device operations); (b) paligemma-3b and seamless-m4t-medium at full
+    width and depth through ``make_train_step`` with no mesh and on (2,
+    2), 2 x 1024 positions with their embeddings, 2 steps, in bf16 and in
+    fp32: losses and flash launches a shard; (c) the reduced mamba2, jamba
+    (8 layers), paligemma and seamless in fp32 on (2, 2), card against
+    CPU, and a checkpoint of the reduced mamba2 saved on (2, 2) restored
+    on (1, 2). Returns the phase's kernel launches."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPacked
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import TRAIN_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import init_lm_params, params_to
+    from repro_torch.optimizer import adamw
+    from repro_torch.optimizer.adamw import AdamWConfig
+    from repro_torch.tree import flatten
+    from repro_torch.training import step as steplib
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    axes = ("data", "model")
+    dev = MESH_STACK[0]
+    ops.reset_launch_counts()
+
+    # (a) mamba2-2.7b through the launcher, with no mesh and on (2, 2)
+    cfg = get_config("mamba2-2.7b")
+    B, S, MB, steps = 4, 1024, 2, 2
+    args = ["--arch", "mamba2-2.7b", "--steps", str(steps), "--batch",
+            str(B), "--seq", str(S), "--microbatches", str(MB),
+            "--moments-dtype", "int8", "--log-every", "1"]
+    runs = {}
+    for name, extra in (("no mesh", ["--device", dev]),
+                        ("(2, 2)", ["--mesh", "2,2", "--device",
+                                    ",".join(MESH_STACK)])):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step_ms = []
+        losses, sums = launch_with_state(torch, args + extra, dev, step_ms)
+        runs[name] = dict(losses=losses, sums=sums,
+                          peak=torch.cuda.max_memory_allocated(),
+                          wall=time.perf_counter() - t0, step_ms=step_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+    flash_a = ops.launch_counts()["flash_attention"]
+    one, mesh_run = runs["no mesh"], runs["(2, 2)"]
+    gap = worst(abs(a - b) for a, b in zip(mesh_run["losses"],
+                                           one["losses"], strict=True))
+    names = leaf_names(steplib.train_state_structs(
+        LM(cfg), AdamWConfig(moments_dtype="int8")))
+    pgap, mgap = split_gaps(mesh_run["sums"], one["sums"], names)
+    log(f"mesh families (a) {cfg.name} ({cfg.num_layers} layers, d_in "
+        f"{cfg.ssm.expand * cfg.d_model}, "
+        f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} heads) through "
+        f"the launcher, {B} x {S} in {MB} microbatches, int8 moments, remat, "
+        f"{steps} steps and a checkpoint: no mesh losses {one['losses']} "
+        f"({one['wall']:.2f} s, steps {one['step_ms']} ms, peak "
+        f"{one['peak']} B); (2, 2) stacked losses {mesh_run['losses']} "
+        f"({mesh_run['wall']:.2f} s, steps {mesh_run['step_ms']} ms, "
+        f"{B * S / mesh_run['step_ms'][-1] * 1e3:.1f} tokens/s at the last, "
+        f"peak {mesh_run['peak']} B): max |gap| {gap:.3e} (tolerance "
+        f"{MESH_TOL}); state after {steps} steps against no mesh's, the "
+        f"largest relative gap of a leaf's measure: parameters' sums of "
+        f"|x| {pgap:.3e}, int8 moments' dequantised norms {mgap:.3e} "
+        f"(tolerance {STATE_TOL} each; widest: "
+        f"{widest_gaps(mesh_run['sums'], one['sums'], names)}); flash "
+        f"launches {flash_a} (no attention layer)")
+    if not gap <= MESH_TOL:
+        raise AssertionError(f"mesh families (a): losses {mesh_run['losses']}"
+                             f" vs {one['losses']}")
+    if not (pgap <= STATE_TOL and mgap <= STATE_TOL):
+        raise AssertionError(f"mesh families (a): state gap {pgap}, {mgap}")
+
+    mesh = make_mesh((2, 2), axes, MESH_STACK)
+    lm = LM(cfg)
+    opt = AdamWConfig(moments_dtype="int8")
+    state = steplib.init_train_state(
+        lm, torch.Generator(device=dev).manual_seed(0), opt, dev, mesh=mesh)
+    # the frozen-update control: the state a step that changes nothing
+    # leaves (the one just drawn) must read past the tolerance on both
+    fpar, fmom = split_gaps(state_measures(torch, state), one["sums"], names)
+    log(f"mesh families (a) frozen-update control: the drawn state against "
+        f"the no-mesh run's at step {steps}: largest relative gap, "
+        f"parameters {fpar:.3e}, moments {fmom:.3e} (each must exceed "
+        f"{STATE_TOL}; the mesh run's {pgap:.3e}, {mgap:.3e})")
+    if not (fpar > STATE_TOL and fmom > STATE_TOL):
+        raise AssertionError("mesh families (a): an unchanged state reads "
+                             f"within {STATE_TOL} of the trained one")
+    structs = steplib.train_state_structs(lm, opt)
+    st_axes = steplib.train_state_logical_axes(lm, opt)
+    held = {}
+    for part in ("params", "opt"):
+        want = dryrun.tree_bytes_per_device(getattr(structs, part),
+                                            getattr(st_axes, part), mesh,
+                                            TRAIN_RULES)
+        held[part] = spmd.bytes_per_position(getattr(state, part))
+        if held[part] != [want] * mesh.size:
+            raise AssertionError(f"mesh families (a): {part} bytes a "
+                                 f"position {held[part]} != dry-run's {want}")
+    log(f"mesh families (a) bytes a position holds (= dryrun."
+        f"tree_bytes_per_device for {cfg.name}, (2, 2), TRAIN_RULES, int8 "
+        f"moments): params {held['params'][0]} B, moments {held['opt'][0]} "
+        f"B; whole params "
+        f"{sum(int(np.prod(s.shape)) * 2 for s in flatten(structs.params)[0])}"
+        f" B")
+    step_fn = steplib.make_train_step(lm, opt, microbatches=MB, mesh=mesh)
+    data = SyntheticPacked(cfg.vocab_size, S, B)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                next(data).items()}]
+    torch.cuda.reset_peak_memory_stats()
+    # the launcher's runs warmed this path and timed its steps: one step,
+    # traced (the profiler's records slow its host side)
+    state, step_s, traced_s, fams, coll = mesh_step_profile(
+        torch, step_fn, state, batches, mesh, f"mesh families (a) step, "
+        f"{cfg.name} on (2, 2) stacked", warm_up=False)
+    log(f"mesh families (a) traced step: peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B; collective bytes by "
+        f"position: {coll}")
+    del state, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) paligemma-3b and seamless-m4t-medium with their embeddings
+    T_all = 1024
+    for arch in ("paligemma-3b", "seamless-m4t-medium"):
+        bcfg = get_config(arch)
+        enc = bcfg.num_encoder_layers > 0
+        F, e = bcfg.frontend.num_embeds, bcfg.frontend.embed_dim
+        T = T_all if enc else T_all - F
+        key = "src_embeds" if enc else "embeds"
+        g = torch.Generator(device=dev).manual_seed(16)
+        bdata = SyntheticPacked(bcfg.vocab_size, T, 2)
+        bbatches = []
+        for _ in range(2):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in
+                 next(bdata).items()}
+            b[key] = torch.randn((2, F, e), generator=g, device=dev).to(
+                torch.bfloat16)
+            bbatches.append(b)
+        bopt = AdamWConfig(moments_dtype="int8")
+        # flash a position a step: the decoder's self- (and cross-)
+        # attention forward and in remat's recompute, the encoder's once
+        per_pos = (2 * bcfg.num_layers * (2 if enc else 1)
+                   + bcfg.num_encoder_layers)
+        out = {}
+        for dtype, shape_m in itertools.product(("bfloat16", "float32"),
+                                                (None, (2, 2))):
+            blm = LM(dataclasses.replace(bcfg, dtype=dtype))
+            bmesh = make_mesh(shape_m, axes, MESH_STACK) if shape_m else None
+            n = bmesh.size if bmesh else 1
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            bstate = steplib.init_train_state(
+                blm, torch.Generator(device=dev).manual_seed(0), bopt, dev,
+                mesh=bmesh)
+            fn = steplib.make_train_step(blm, bopt, mesh=bmesh)
+            before = ops.launch_counts()["flash_attention"]
+            ls = []
+            for b in bbatches:
+                bstate, m = fn(bstate, b)
+                ls.append(float(m["loss"]))
+            flash = ops.launch_counts()["flash_attention"] - before
+            out[dtype, shape_m] = ls
+            log(f"mesh families (b) {bcfg.name} ({bcfg.num_layers} decoder "
+                f"layers"
+                + (f", {bcfg.num_encoder_layers} encoder" if enc else "") +
+                f"), 2 x ({F} embeddings + {T} tokens), {dtype}, int8 "
+                f"moments, mesh {shape_m}: losses {ls}; "
+                f"{time.perf_counter() - t0:.2f} s "
+                f"for the draw and 2 steps, peak "
+                f"{torch.cuda.max_memory_allocated()} B; flash launches "
+                f"{flash} ({per_pos} a position a step x {n} x 2 steps)")
+            if flash != per_pos * n * 2:
+                raise AssertionError(f"mesh families (b): {bcfg.name} flash "
+                                     f"launched {flash} times")
+            del bstate, fn
+            gc.collect()
+            torch.cuda.empty_cache()
+        bgap = worst(abs(a - b) for a, b in zip(
+            out["bfloat16", (2, 2)], out["bfloat16", None], strict=True))
+        frel = worst(abs(a - b) / abs(b) for a, b in zip(
+            out["float32", (2, 2)], out["float32", None], strict=True))
+        log(f"mesh families (b) {bcfg.name} (2, 2) against no mesh: bf16 "
+            f"max |gap| {bgap:.3e} (tolerance {FAMILY_BF16_TOL}), fp32 max "
+            f"relative {frel:.3e} (tolerance {FAMILY_FP32_RTOL})")
+        if not (bgap <= FAMILY_BF16_TOL and frel <= FAMILY_FP32_RTOL):
+            raise AssertionError(f"mesh families (b): {bcfg.name} {out}")
+
+    # (c) the reduced configs in fp32 on the card against the CPU
+    for arch, over in FAMILY_REDUCED:
+        rcfg = dataclasses.replace(get_config(arch).reduced(),
+                                   dtype="float32", **over)
+        rlm = LM(rcfg)
+        ropt = AdamWConfig(warmup_steps=1)
+        cpu_params = init_lm_params(rcfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        rdata = SyntheticPacked(rcfg.vocab_size, 32, 4)
+        rng = np.random.default_rng(0)
+        rbatches = []
+        for _ in range(2):
+            b = {k: torch.from_numpy(v) for k, v in next(rdata).items()}
+            if rcfg.frontend.kind != "none":
+                b["src_embeds" if rcfg.num_encoder_layers else "embeds"] = \
+                    torch.from_numpy(rng.standard_normal(
+                        (4, rcfg.frontend.num_embeds,
+                         rcfg.frontend.embed_dim)).astype(np.float32))
+            rbatches.append(b)
+        res = {}
+        for where in ("card", "cpu"):
+            rmesh = make_mesh((2, 2), axes, MESH_STACK if where == "card"
+                              else "cpu")
+            rdev = rmesh.devices[0]
+            params = params_to(cpu_params, rdev)
+            rstate = steplib.place_state(rlm, ropt, steplib.TrainState(
+                params, adamw.init_state(params, ropt)), rmesh)
+            fn = steplib.make_train_step(rlm, ropt, microbatches=2,
+                                         mesh=rmesh)
+            ls = []
+            for b in rbatches:
+                rstate, m = fn(rstate, {k: v.to(rdev) for k, v in b.items()})
+                ls.append(float(m["loss"]))
+                if len(ls) == 1:    # the first step's gradients: m / (1 - b1)
+                    first = [spmd.gather(x).cpu().double() / (1 - ropt.b1)
+                             for x in flatten(rstate.opt.m)[0]]
+            res[where] = (ls, rstate, first)
+        (lc, sc, _), (lp, sp, first) = res["card"], res["cpu"]
+        rel = worst(abs(a - b) / abs(b) for a, b in zip(lc, lp, strict=True))
+        mom, rest, flat_gap, flat_apart, seen = fp32_states_apart(
+            sc, sp, first, ropt)
+        log(f"mesh families (c) {rcfg.name} ({rcfg.num_layers} layers) fp32 "
+            f"on (2, 2), card vs CPU: losses {lc} vs {lp} (max relative "
+            f"{rel:.2e}, tolerance {FAMILY_CPU_RTOL}); after 2 steps the fp32 "
+            f"moments max |card - cpu| {mom:.2e} (tolerance 1e-6); params: "
+            f"the largest gap past atol 1e-5 + rtol 1e-4 {rest:.2e} (must "
+            f"be <= 0) where the first gradient is not within {ADAM_FLAT:g} "
+            f"eps of zero; where it is, {flat_apart} elements past it (at "
+            f"most {MAX_FLAT}: {seen}), at most {flat_gap:.2e} apart "
+            f"(within 2 lr a step, {4 * ropt.lr:.1e})")
+        if not (rel <= FAMILY_CPU_RTOL and mom <= 1e-6 and rest <= 0
+                and flat_gap <= 4 * ropt.lr and flat_apart <= MAX_FLAT):
+            raise AssertionError(f"mesh families (c): {rcfg.name} card != "
+                                 f"CPU")
+        if arch == "mamba2-2.7b":
+            with tempfile.TemporaryDirectory() as ck:
+                mgr = CheckpointManager(ck)
+                mgr.save(2, sc)
+                want = [spmd.gather(x).cpu() for x in flatten(sc)[0]]
+                other = make_mesh((1, 2), axes, MESH_STACK[:2])
+                on_other = mgr.restore(2, steplib.train_state_logical_axes(
+                    rlm, ropt), mesh=other)
+                for w, a in zip(want, flatten(on_other)[0], strict=True):
+                    if not torch.equal(spmd.gather(a).cpu(), w):
+                        raise AssertionError("mesh families (c): a restored "
+                                             "leaf differs")
+            log(f"mesh families (c) {rcfg.name}: the checkpoint saved on "
+                f"(2, 2) restores on (1, 2) to equal leaves ({len(want)} "
+                f"leaves)")
+        del res, sc, sp
+    launches = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16 wall: {time.perf_counter() - t_phase:.2f} s")
     return launches
 
 
@@ -2694,6 +3206,9 @@ def main(argv) -> int:
     # 15. training on a (data, model) mesh, shards stacked on the card
     launches["mesh"] = mesh_phase(torch, *train_ref)
 
+    # 16. the SSM, hybrid, frontend and encoder-decoder families on a mesh
+    launches["mesh_families"] = mesh_families_phase(torch)
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -2717,7 +3232,9 @@ def main(argv) -> int:
                                 ("12_train", launches["train"]),
                                 ("13_tooling", launches["tooling"]),
                                 ("14_tp", launches["tp"]),
-                                ("15_mesh", launches["mesh"]))})
+                                ("15_mesh", launches["mesh"]),
+                                ("16_mesh_families",
+                                 launches["mesh_families"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

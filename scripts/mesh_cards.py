@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py`` phase 15 (a) with its shards on separate cards: the
-cross-card path of training on a (data, model) mesh (each position's
-pieces and kernels on its own card, the collectives across cards).
+"""``chip_smoke.py`` phase 16 (a), or phase 15 (a), with its shards on
+separate cards: the cross-card path of training on a (data, model) mesh
+(each position's pieces and kernels on its own card, the collectives
+across cards).
 
 Needs a host with at least four CUDA cards. It builds the kernels, then
-trains gemma3-1b at full width and depth through the launcher (phase 12's
-seeded bf16 weights and data, 4 x 1024 in 2 microbatches, int8 moments,
-3 steps) with no mesh on ``cuda:0``, on a (2, 2) mesh stacked on
-``cuda:0``, and on a (2, 2) mesh over ``cuda:0..3``, each with a
-checkpoint at its end. The mesh runs' losses must lie within
+trains mamba2-2.7b (phase 16, the default: 2 steps) or gemma3-1b
+(``--phase 15``: 3 steps) at full width and depth through the launcher
+(seeded bf16 weights, ``SyntheticPacked`` seed 0, 4 x 1024 in 2
+microbatches, int8 moments) with no mesh on ``cuda:0``, on a (2, 2) mesh
+stacked on ``cuda:0``, and on a (2, 2) mesh over ``cuda:0..3``, each with
+a checkpoint at its end. The mesh runs' losses must lie within
 ``chip_smoke.MESH_TOL`` of the run without one, and their states within
-``chip_smoke.STATE_TOL`` (``chip_smoke.state_gap``). Run from the
+``chip_smoke.STATE_TOL``, the parameters and the int8 moments each
+(``chip_smoke.split_gaps`` of each leaf's ``chip_smoke.leaf_measures``).
+Phase 16 adds a control with no mesh at
+all: one microbatch of 4 rows in place of two of 2, the same step with
+its bf16 adds in another order, whose state gap to the two-microbatch
+run is the noise floor of the check (printed, not held). Run from the
 repository root:
 
-    python3 scripts/mesh_cards.py
+    python3 scripts/mesh_cards.py [--phase 15]
 
-It prints the card's name, power limit and count, each run's lines, and
-last one JSON object with the runs' losses and walls. The positions run
-from one host thread, so no wall here is a data- or model-parallel
-speed-up.
+It prints the card's name, power limit and count, each run's lines with
+each card's peak memory, and last one JSON object with the runs' losses,
+walls and peaks. The positions run from one host thread, so no wall here
+is a data- or model-parallel speed-up.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -33,7 +41,13 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def main() -> int:
+ARCH = {15: "gemma3-1b", 16: "mamba2-2.7b"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", type=int, choices=sorted(ARCH), default=16)
+    arch = ARCH[ap.parse_args(argv).phase]
     n = torch.cuda.device_count()
     if n < 4:
         print(f"mesh_cards: needs four CUDA cards, torch sees {n}",
@@ -52,13 +66,16 @@ def main() -> int:
     for i in range(4):      # a context on each card, for its memory stats
         torch.zeros(1, device=f"cuda:{i}")
     _build.build()
-    args = ["--arch", "gemma3-1b", "--steps", "3", "--batch", "4", "--seq",
-            "1024", "--microbatches", "2", "--moments-dtype", "int8",
-            "--log-every", "1"]
-    runs = {"one card": [], "stacked": ["--mesh", "2,2", "--device",
-                                        ",".join(cs.MESH_STACK)],
-            "four cards": ["--mesh", "2,2", "--device",
-                           ",".join(f"cuda:{i}" for i in range(4))]}
+    steps = 2 if arch == "mamba2-2.7b" else 3
+    args = ["--arch", arch, "--steps", str(steps), "--batch", "4", "--seq",
+            "1024", "--moments-dtype", "int8", "--log-every", "1"]
+    mb2 = ["--microbatches", "2"]
+    runs = {"one card": mb2, "stacked": mb2 + [
+        "--mesh", "2,2", "--device", ",".join(cs.MESH_STACK)],
+        "four cards": mb2 + ["--mesh", "2,2", "--device",
+                             ",".join(f"cuda:{i}" for i in range(4))]}
+    if arch == "mamba2-2.7b":
+        runs["one card, 1 microbatch"] = ["--microbatches", "1"]
     out = {}
     for name, extra in runs.items():
         ops.reset_launch_counts()
@@ -71,23 +88,35 @@ def main() -> int:
         out[name] = dict(losses=losses, wall_s=wall, peak_bytes=peaks,
                          flash=ops.launch_counts()["flash_attention"],
                          sums=sums)
-        cs.log(f"{name}: losses {losses}, {wall:.2f} s for 3 steps and a "
-               f"checkpoint (weights drawn and placed at start), peak "
+        cs.log(f"{name}: losses {losses}, {wall:.2f} s for {steps} steps and "
+               f"a checkpoint (weights drawn and placed at start), peak "
                f"memory a card {peaks}, flash launches "
                f"{out[name]['flash']}")
-    for name in ("stacked", "four cards"):
-        gap = max(abs(a - b) for a, b in zip(out[name]["losses"],
-                                              out["one card"]["losses"]))
-        sgap = cs.state_gap(out[name]["sums"], out["one card"]["sums"])
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.optimizer.adamw import AdamWConfig
+    from repro_torch.training.step import train_state_structs
+    names = cs.leaf_names(train_state_structs(
+        LM(get_config(arch)), AdamWConfig(moments_dtype="int8")))
+    base = out["one card"]
+    for name in [n for n in out if n != "one card"]:
+        gap = cs.worst(abs(a - b) for a, b in zip(out[name]["losses"],
+                                                  base["losses"]))
+        pgap, mgap = cs.split_gaps(out[name]["sums"], base["sums"], names)
+        out[name]["state_gap"] = dict(params=pgap, moments=mgap)
         cs.log(f"{name} against one card: losses max |gap| {gap:.3e} "
-               f"(tolerance {cs.MESH_TOL}), state {sgap:.3e} (tolerance "
-               f"{cs.STATE_TOL})")
-        if gap > cs.MESH_TOL or sgap > cs.STATE_TOL:
+               f"(tolerance {cs.MESH_TOL}), state: parameters {pgap:.3e}, "
+               f"moments {mgap:.3e} (tolerance {cs.STATE_TOL} each); widest "
+               f"{cs.widest_gaps(out[name]['sums'], base['sums'], names)}")
+        if "microbatch" in name:
+            continue                    # the control: printed, not held
+        if not (gap <= cs.MESH_TOL and pgap <= cs.STATE_TOL
+                and mgap <= cs.STATE_TOL):
             raise AssertionError(f"{name}: {out[name]['losses']}")
     for run in out.values():
         del run["sums"]
     print("\n".join(card))
-    print(json.dumps({"mesh_cards": out}), flush=True)
+    print(json.dumps({"mesh_cards": out, "arch": arch}), flush=True)
     return 0
 
 

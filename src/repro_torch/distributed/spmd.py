@@ -327,18 +327,20 @@ def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
     return out
 
 
-def gathered_over(x: Placed, axis: str) -> List[torch.Tensor]:
-    """Each position's piece with the dims that ``axis`` shards gathered
-    (an FSDP weight just before its use); differentiable."""
+def gathered_over(x: Placed, *axes: str) -> List[torch.Tensor]:
+    """Each position's piece with the dims that any of ``axes`` shards
+    gathered (an FSDP weight just before its use), dim by dim;
+    differentiable."""
     xs = list(x.pieces)
     for d, part in enumerate(x.spec):
-        axes = _axes_of(part)
-        if axis in axes:
-            if len(axes) > 1:
-                raise NotImplementedError(
-                    f"a dim sharded over {axes} together: only one mesh "
-                    f"axis a dim is gathered")
-            xs = all_gather(xs, mesh=x.mesh, axis=axis, dim=d)
+        names = _axes_of(part)
+        for axis in axes:
+            if axis in names:
+                if len(names) > 1:
+                    raise NotImplementedError(
+                        f"a dim sharded over {names} together: only one "
+                        f"mesh axis a dim is gathered")
+                xs = all_gather(xs, mesh=x.mesh, axis=axis, dim=d)
     return xs
 
 

@@ -14,13 +14,13 @@ device time (kernels by name on CUDA; aten operators by self CPU time with
         --shape decode_32k --periods 1 [--top 20] [--device cpu]
 
 It runs on CUDA unless ``--device cpu``. ``--mesh D,M`` runs a train
-cell's step on a ``(data, model)`` mesh (``launch.mesh.make_mesh``: CUDA
-needs ``D·M`` cards unless ``--device`` lists one device a shard, e.g.
-``cuda:0,cuda:0,cuda:0,cuda:0``; ``--device cpu`` puts every shard on the
-CPU) and prints the top operations of each device, then the bytes each
-position's collectives counted and the roofline's collective term they
-give. Prefill and decode cells run on one device (their mesh path is
-ROADMAP.md §1 item 3).
+cell's step, of any family, on a ``(data, model)`` mesh
+(``launch.mesh.make_mesh``: CUDA needs ``D·M`` cards unless ``--device``
+lists one device a shard, e.g. ``cuda:0,cuda:0,cuda:0,cuda:0``;
+``--device cpu`` puts every shard on the CPU) and prints the top
+operations of each device, then the bytes each position's collectives
+counted and the roofline's collective term they give. Prefill and decode
+cells run on one device (their mesh path is ROADMAP.md §1 item 3).
 """
 from __future__ import annotations
 

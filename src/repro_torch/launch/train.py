@@ -5,12 +5,15 @@ The port of ``src/repro/launch/train.py``, with the same flags and prints,
 plus ``--device`` (default ``cuda``; with no CUDA device only ``--device
 cpu`` runs). Weights are drawn from ``torch.Generator(device)`` seeded with
 ``--seed`` (on a mesh: on its first device, then placed, so a mesh trains
-the weights of the run without one). ``--mesh D,M`` trains on a
-``(data, model)`` mesh (``launch.mesh.make_mesh``): ``--device cpu`` puts
+the weights of the run without one). ``--mesh D,M`` trains any config on
+a ``(data, model)`` mesh (``launch.mesh.make_mesh``): ``--device cpu`` puts
 every shard on the CPU, a comma-separated list of ``D·M`` devices is taken
 as given (``cuda:0,cuda:0,cuda:0,cuda:0`` stacks four shards on one
 card), and ``cuda`` needs ``D·M`` cards. ``--resume`` restores onto the
-mesh of this run, whatever mesh saved the checkpoint.
+mesh of this run, whatever mesh saved the checkpoint. The data is
+``SyntheticPacked``'s tokens, as the reference launcher's, so a config
+with a frontend or an encoder fails for want of its ``embeds`` or
+``src_embeds`` with a mesh as without one.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir build/ckpt \\

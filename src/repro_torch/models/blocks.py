@@ -10,14 +10,16 @@ memory, and a dense or MoE (``models/moe.py``) FFN. Eager PyTorch in place
 of jnp; the decode path updates its caches in place. The weights' shapes
 live in ``models/params.py``.
 
-``shard_weights`` and ``apply_layer_shards`` run a decoder layer (dense
-or MoE FFN) over a mesh (``distributed/spmd.py``), the counterpart of
-what GSPMD compiles from the reference's sharding annotations: each
-position computes its data shard's rows with its model shard's q heads,
-``d_ff`` columns or experts, and the partials of ``wo``, ``w_down`` and
-the MoE combine are all-reduced over "model" (not where the heads, the
-``d_ff`` or the experts stay whole on every shard: there every shard
-computes the whole).
+``shard_weights`` and ``apply_layer_shards`` run any of these layers over
+a mesh (``distributed/spmd.py``), the counterpart of what GSPMD compiles
+from the reference's sharding annotations: each position computes its
+data shard's rows with its model shard's q heads (self- and
+cross-attention), SSM channels and heads, ``d_ff`` columns or experts, and
+the partials of ``wo``, ``cwo``, ``out_proj``, ``w_down`` and the MoE
+combine are all-reduced over "model" (not where the heads, the channels,
+the ``d_ff`` or the experts stay whole on every shard: there every shard
+computes the whole). The SSM's output norm spans the whole ``d_in``: its
+sum of squares is all-reduced over "model" before the division.
 """
 from __future__ import annotations
 
@@ -194,12 +196,35 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(x.float()).to(x.dtype)
 
 
-def _ssm_finish(cfg, p, y, z, x_dtype):
-    """Gate y (B, S, H, P) by silu(z), normalise, project out."""
+def _ssm_scan(cfg, p, x, want_cache=False):
+    """The SSM mixer of x (B, S, d) up to its gate: (y (B, S, H, P), z,
+    the layer's cache or None). On a shard, its channels and heads."""
+    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    z, xr, br, cr, dtr = _ssm_proj(p, h)
+    xc = _silu(ssm_lib.causal_conv(xr, p["conv_x"]))
+    bc = _silu(ssm_lib.causal_conv(br, p["conv_b"]))
+    cc = _silu(ssm_lib.causal_conv(cr, p["conv_c"]))
+    res = ssm_lib.ssd_forward({"x": xc, "b": bc, "c": cc, "dt": dtr},
+                              p, cfg.ssm, return_state=want_cache)
+    if not want_cache:
+        return res, z, None
+    y, h_state = res
+    W = cfg.ssm.conv_width
+    return y, z, {"h": h_state, "conv_x": _right_fit(xr, W - 1),
+                  "conv_b": _right_fit(br, W - 1),
+                  "conv_c": _right_fit(cr, W - 1)}
+
+
+def _ssm_gate(y, z):
+    """y (B, S, H, P) as (B, S, d_in), gated by silu(z)."""
     B, S, d_in = z.shape
     y = y.reshape(B, S, d_in)
-    gated = y * torch.nn.functional.silu(z.float()).to(y.dtype)
-    gated = rms_norm(gated, p["norm_y"], cfg.rms_eps)
+    return y * torch.nn.functional.silu(z.float()).to(y.dtype)
+
+
+def _ssm_finish(cfg, p, y, z, x_dtype):
+    """Gate y (B, S, H, P) by silu(z), normalise, project out."""
+    gated = rms_norm(_ssm_gate(y, z), p["norm_y"], cfg.rms_eps)
     return (gated @ p["out_proj"]).to(x_dtype)
 
 
@@ -237,21 +262,9 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                 cache["k"] = _left_fit(k, capacity)
                 cache["v"] = _left_fit(v, capacity)
     else:
-        h = rms_norm(x, p["ln1"], cfg.rms_eps)
-        z, xr, br, cr, dtr = _ssm_proj(p, h)
-        xc = _silu(ssm_lib.causal_conv(xr, p["conv_x"]))
-        bc = _silu(ssm_lib.causal_conv(br, p["conv_b"]))
-        cc = _silu(ssm_lib.causal_conv(cr, p["conv_c"]))
-        res = ssm_lib.ssd_forward({"x": xc, "b": bc, "c": cc, "dt": dtr},
-                                  p, cfg.ssm, return_state=want_cache)
+        y, z, c = _ssm_scan(cfg, p, x, want_cache)
         if want_cache:
-            y, cache["h"] = res
-            W = cfg.ssm.conv_width
-            cache["conv_x"] = _right_fit(xr, W - 1)
-            cache["conv_b"] = _right_fit(br, W - 1)
-            cache["conv_c"] = _right_fit(cr, W - 1)
-        else:
-            y = res
+            cache.update(c)
         x = x + _ssm_finish(cfg, p, y, z, x.dtype)
     if spec.has_cross:
         if memory is None:
@@ -333,52 +346,109 @@ def _kv_heads_of(first: int, n: int, group: int):
     return [(first + t) // group for t in range(n)]
 
 
+# an SSM layer's leaves over its d_in channels; its heads' are w_dt,
+# dt_bias, A_log and D
+_SSM_CHANNELS = ("w_z", "w_x", "conv_x", "norm_y", "out_proj")
+
+
+def _ssm_cut_in_heads(p: Dict) -> bool:
+    """Whether an SSM layer's channels split over "model" while its heads
+    stay whole (``pspec_for`` drops a split the heads do not divide): a
+    shard's channels would then cut a head."""
+    def split(x):
+        return any("model" in (a if isinstance(a, tuple) else (a,))
+                   for a in x.spec)
+    return split(p["w_x"]) and not split(p["w_dt"])
+
+
 def shard_weights(cfg: ModelConfig, p: Dict, mesh) -> list:
     """Each position's weights of one layer from its ``spmd.Placed``
     leaves (nested ``moe`` dict included): the dims sharded over "data"
-    (FSDP) gathered, and, where the q heads split over "model" and the kv
-    heads do not, the kv heads that position's q heads read.
+    (FSDP) gathered; where the q heads of self- or cross-attention split
+    over "model" and their kv heads do not, the kv heads that position's
+    q heads read; and where an SSM layer's channels split over "model"
+    but its heads do not, its channel leaves gathered over "model" too,
+    so every position runs the whole mixer, as GSPMD does.
     Differentiable: the gathers' gradients reduce-scatter back."""
+    whole = (set(_SSM_CHANNELS) if "w_x" in p and _ssm_cut_in_heads(p)
+             else set())
+
     def walk(src):
         out = [dict() for _ in range(mesh.size)]
         for k, v in src.items():
             parts = walk(v) if isinstance(v, dict) else \
-                spmd.gathered_over(v, "data")
+                spmd.gathered_over(v, "data", *(("model",) if k in whole
+                                                else ()))
             for d, t in zip(out, parts):
                 d[k] = t
         return out
 
     ws = walk(p)
-    if "wq" in p and "wk" in p:
-        group = cfg.num_heads // cfg.num_kv_heads
+    group = cfg.num_heads // max(cfg.num_kv_heads, 1)
+    for pre in ("", "c"):
+        if pre + "wq" not in p:
+            continue
         for r, w in enumerate(ws):
-            n = w["wq"].shape[1]
-            if n == cfg.num_heads or w["wk"].shape[1] != cfg.num_kv_heads:
+            n = w[pre + "wq"].shape[1]
+            if n == cfg.num_heads or w[pre + "wk"].shape[1] != \
+                    cfg.num_kv_heads:
                 continue
             sel = _kv_heads_of(mesh.axis_index(r, "model") * n, n, group)
-            for k in ("wk", "wv"):
+            for k in (pre + "wk", pre + "wv"):
                 w[k] = (w[k][:, sel] if isinstance(sel, slice) else
                         w[k].index_select(1, torch.tensor(
                             sel, device=w[k].device)))
     return ws
 
 
+def _ssm_shards(cfg: ModelConfig, mesh, ws: list, xs: list) -> list:
+    """An SSM mixer's residual over the mesh: each position scans its
+    channels and heads; the output norm's fp32 sum of squares and the
+    ``out_proj`` partials are all-reduced over "model" where the channels
+    split (the reference's cast points, the mean's sum in another order)."""
+    d_in = cfg.ssm.expand * cfg.d_model
+    scans = [_ssm_scan(cfg, w, x)[:2] for w, x in zip(ws, xs)]
+    if ws[0]["w_x"].shape[1] == d_in:       # every shard holds the whole
+        return [_ssm_finish(cfg, w, y, z, x.dtype)
+                for w, (y, z), x in zip(ws, scans, xs)]
+    gated = [_ssm_gate(y, z) for y, z in scans]
+    sq = spmd.all_reduce([g.float().square().sum(dim=-1, keepdim=True)
+                          for g in gated], mesh, "model")
+    outs = []
+    for w, g, s in zip(ws, gated, sq):
+        normed = g.float() * torch.rsqrt(s / d_in + cfg.rms_eps)
+        normed = (normed * (1.0 + w["norm_y"].float())).to(g.dtype)
+        outs.append(normed @ w["out_proj"])
+    return [o.to(x.dtype) for o, x in zip(spmd.all_reduce(outs, mesh,
+                                                          "model"), xs)]
+
+
 def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
-                       ws: list, xs: list, positions: list) -> list:
-    """One attention layer with a dense or MoE FFN over the mesh: ``ws``
-    from ``shard_weights``, ``xs[r]`` position r's copy of its data
-    shard's residual stream (b, S, d), ``positions[r]`` (b, S). Returns
-    the new residual streams."""
-    if spec.mixer != "attn" or spec.has_cross:
-        raise NotImplementedError(
-            f"{spec} on a mesh: only attention layers with a dense or MoE "
-            f"FFN run on a mesh (ROADMAP.md §1 item 3)")
-    window = 0 if spec.is_global else cfg.attn.sliding_window
-    outs = [_attn_seq(cfg, spec, w, x, pos, window)[0]
-            for w, x, pos in zip(ws, xs, positions)]
-    if ws[0]["wo"].shape[0] != cfg.num_heads:
-        outs = spmd.all_reduce(outs, mesh, "model")
+                       ws: list, xs: list, positions: list,
+                       memory: Optional[list] = None) -> list:
+    """One layer of any kind over the mesh: ``ws`` from ``shard_weights``,
+    ``xs[r]`` position r's copy of its data shard's residual stream (b, S,
+    d), ``positions[r]`` (b, S), ``memory[r]`` its copy of the encoder's
+    memory for a cross-attention layer. Returns the new residual
+    streams."""
+    if spec.mixer == "attn":
+        window = 0 if spec.is_global else cfg.attn.sliding_window
+        outs = [_attn_seq(cfg, spec, w, x, pos, window)[0]
+                for w, x, pos in zip(ws, xs, positions)]
+        if ws[0]["wo"].shape[0] != cfg.num_heads:
+            outs = spmd.all_reduce(outs, mesh, "model")
+    else:
+        outs = _ssm_shards(cfg, mesh, ws, xs)
     xs = [x + o for x, o in zip(xs, outs)]
+    if spec.has_cross:
+        if memory is None:
+            raise ValueError("a cross-attention layer needs the encoder's "
+                             "memory")
+        outs = [_cross_seq(cfg, w, x, m)[0]
+                for w, x, m in zip(ws, xs, memory)]
+        if ws[0]["cwo"].shape[0] != cfg.num_heads:
+            outs = spmd.all_reduce(outs, mesh, "model")
+        xs = [x + o for x, o in zip(xs, outs)]
     if spec.ffn == "none":
         return xs
     hs = [rms_norm(x, w["ln2"], cfg.rms_eps) for w, x in zip(ws, xs)]

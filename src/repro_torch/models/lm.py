@@ -15,15 +15,18 @@ tokens. ``train_loss`` is the training objective; with ``remat`` it runs
 the decoder's layers in groups of ``remat_group`` under
 ``torch.utils.checkpoint``, the counterpart of the reference's
 ``jax.checkpoint`` and grouped remat. ``train_loss(..., mesh=...)`` runs
-the dense and MoE decoder families over a mesh of devices on weights laid
-out by ``distributed/spmd.py`` (each data row of the mesh takes its share
-of the batch; heads, ``d_ff``, experts and the vocabulary split over
-"model"; FSDP weights gathered over "data" layer by layer inside the
-remat groups, so the gathered copies are freed after each group and
-gathered again in its recompute; the groups rematerialize through
-``_Remat``, whose backward recomputes on one thread, where
-``torch.utils.checkpoint``'s hooks would run on every card's autograd
-thread at once). ``param_structs``, ``param_axes``
+every family (dense, MoE, SSM, hybrid, encoder-decoder, frontend) over a
+mesh of devices on weights laid out by ``distributed/spmd.py`` (each data
+row of the mesh takes its share of the batch, its frontend embeddings or
+its encoder's source frames; heads, SSM channels and heads, ``d_ff``,
+experts and the vocabulary split over "model"; FSDP weights gathered over
+"data" layer by layer inside the remat groups, so the gathered copies are
+freed after each group and gathered again in its recompute; the groups
+rematerialize through ``_Remat``, whose backward recomputes on one
+thread, where ``torch.utils.checkpoint``'s hooks would run on every card's
+autograd thread at once; the encoder runs without remat, as the
+reference's, and each position's copy of its memory feeds that position's
+cross-attention heads). ``param_structs``, ``param_axes``
 and ``cache_specs`` describe the weights and caches, with their logical
 axes, without allocating them (the dry-run's input). The reference's
 ``scan_unroll`` served its dry-run's cost extrapolation over ``lax.scan``;
@@ -241,39 +244,60 @@ class LM:
 
     # -- on a mesh --------------------------------------------------------
 
-    def _remat_shards(self, layers, xs, positions, mesh):
+    def _remat_shards(self, layers, xs, positions, mesh, memory=None):
         """``_run_shards`` over one remat group through ``_Remat``: the
-        group's streams and weight pieces are its inputs."""
+        group's streams, the encoder's memory and the weight pieces are
+        its inputs."""
         specs = [spec for spec, _ in layers]
         leaves, rebuild = flatten([p for _, p in layers])
+        mem = list(memory or ())
 
-        def run(xs, pieces):
-            out, i = [], 0
+        def run(xs, rest):
+            out, i = [], len(mem)
             for x in leaves:
-                out.append(x.like(pieces[i:i + len(x.pieces)]))
+                out.append(x.like(rest[i:i + len(x.pieces)]))
                 i += len(x.pieces)
             return self._run_shards(list(zip(specs, rebuild(out))), xs,
-                                    positions, mesh)
+                                    positions, mesh, rest[:len(mem)] or None)
 
         pieces = [p for x in leaves for p in x.pieces]
-        return list(_Remat.apply(run, len(xs), *xs, *pieces))
+        return list(_Remat.apply(run, len(xs), *xs, *mem, *pieces))
 
-    def _run_shards(self, layers, xs, positions, mesh):
+    def _run_shards(self, layers, xs, positions, mesh, memory=None):
         for spec, p in layers:
             ws = blocks.shard_weights(self.cfg, p, mesh)
             xs = blocks.apply_layer_shards(self.cfg, spec, mesh, ws, xs,
-                                           positions)
+                                           positions, memory)
             del ws
         return xs
+
+    def _encode_shards(self, head, encoder, src, mesh):
+        """``_encode`` over the mesh: each position projects its data
+        shard's source frames ``src[r]`` in fp32 with ``frontend_proj``
+        gathered over "data", runs the non-causal stack without remat and
+        normalises; returns each position's copy of the memory."""
+        cfg = self.cfg
+        proj = spmd.gathered_over(head["frontend_proj"], "data")
+        norm = spmd.gathered_over(head["enc_norm"], "data")
+        xs = [(s.float() @ w.float()).to(dtype_of(cfg.dtype))
+              for s, w in zip(src, proj)]
+        positions = [torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2]) for x in xs]
+        xs = self._run_shards(list(zip(self.enc_specs, encoder,
+                                       strict=True)), xs, positions, mesh)
+        return [rms_norm(x, n, cfg.rms_eps) for x, n in zip(xs, norm)]
 
     def _train_loss_mesh(self, params, batch, remat, mesh) -> torch.Tensor:
         """``train_loss`` over ``mesh``: the global masked mean, the sum of
         every data shard's masked NLL over the whole batch's mask count.
-        The embedding is a masked lookup in each model shard's vocabulary
-        rows, all-reduced; the loss takes the logsumexp and the gold logit
-        across the vocabulary shards (the max first, then the sums)."""
+        An encoder's memory comes first (``_encode_shards``). The
+        embedding is a masked lookup in each model shard's vocabulary
+        rows, all-reduced, with a frontend's projected embeddings ahead
+        of it; the loss takes the logsumexp and the gold logit across the
+        vocabulary shards (the max first, then the sums) over the token
+        region."""
         cfg = self.cfg
-        check_mesh_support(cfg, mesh)
+        check_mesh_support(mesh)
         D = mesh.shape.get("data", 1)
         B, S = batch["tokens"].shape
         if B % D:
@@ -291,6 +315,10 @@ class LM:
             return (mesh.axis_index(r, "model") * n if n != V else 0), n
 
         head = params["head"]
+        memory = (self._encode_shards(
+            head, params["encoder"],
+            [rows("src_embeds", r) for r in range(mesh.size)], mesh)
+            if self.enc_program else None)
         emb = spmd.gathered_over(head["embed"], "data")
         xs = []
         for r in range(mesh.size):
@@ -305,13 +333,25 @@ class LM:
                       * inside[..., None].to(emb[r].dtype))
         if emb[0].shape[0] != V:
             xs = spmd.all_reduce(xs, mesh, "model")
-        positions = [torch.arange(S, device=d).expand(b, S) for d in devs]
+        frontend = cfg.frontend.kind != "none" and not self.enc_program
+        if frontend:
+            proj = spmd.gathered_over(head["frontend_proj"], "data")
+            for r in range(mesh.size):
+                e = rows("embeds", r).to(xs[r].dtype)
+                xs[r] = torch.cat([(e @ proj[r]).to(xs[r].dtype), xs[r]],
+                                  dim=1)
+        n_in = xs[0].shape[1]
+        positions = [torch.arange(n_in, device=d).expand(b, n_in)
+                     for d in devs]
         layers = list(zip(self.specs, params["layers"], strict=True))
         g = self.remat_group if remat else len(layers)
         for i in range(0, len(layers), g):
             group = layers[i:i + g]
-            xs = (self._remat_shards(group, xs, positions, mesh) if remat
-                  else self._run_shards(group, xs, positions, mesh))
+            xs = (self._remat_shards(group, xs, positions, mesh, memory)
+                  if remat else
+                  self._run_shards(group, xs, positions, mesh, memory))
+        if frontend:
+            xs = [x[:, -S:] for x in xs]
 
         norm = spmd.gathered_over(head["final_norm"], "data")
         out = (emb if cfg.tie_embeddings
@@ -383,16 +423,10 @@ class _Remat(torch.autograd.Function):
         return (None, None, *full)
 
 
-def check_mesh_support(cfg: ModelConfig, mesh) -> None:
-    """The families and meshes the mesh path runs: decoder-only dense and
-    MoE configs on a mesh of devices over "data" and "model"."""
-    if cfg.ssm is not None or cfg.num_encoder_layers or cfg.cross_attention \
-            or cfg.frontend.kind != "none":
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family}) on a mesh: only decoder-only "
-            f"dense and MoE configs run on a mesh so far; SSM, hybrid, "
-            f"encoder-decoder and frontend configs wait for ROADMAP.md §1 "
-            f"item 3")
+def check_mesh_support(mesh) -> None:
+    """The meshes the mesh path runs: a mesh of devices over "data" and
+    "model", for every family (dense, MoE, SSM, hybrid, encoder-decoder,
+    frontend)."""
     if mesh.devices is None:
         raise ValueError("training on a mesh needs its devices "
                          "(launch.mesh.make_mesh)")

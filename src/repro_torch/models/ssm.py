@@ -11,6 +11,15 @@ state is cast to the input's dtype (the cache dtype).
 
 Shapes: x (B, S, d_inner) with d_inner = H·P (H heads of dim P); state
 size N; one B/C group.
+
+One deliberate difference: the reference exponentiates the intra-chunk
+decay ``L_q - L_s`` everywhere and then zeroes the entries above the
+diagonal, where it is positive; once it passes fp32's ``exp`` range
+(about 88, which a 256-step chunk reaches at full width) the forward
+still reads 0 there but the gradient is NaN (``0 * inf``), so the
+reference cannot train mamba2 or jamba at full width. The port masks the
+exponent to ``-inf`` first: the same forward, bit for bit, and a finite
+gradient (ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -84,8 +93,11 @@ def ssd_forward(xz: dict, params: dict, cfg: SSMConfig, init_state=None,
         L_last = L[:, -1]                                         # (B,H)
         # within the chunk
         cb = torch.einsum("bqn,bsn->bqs", cq.float(), bq.float())
-        decay = torch.exp(L[:, :, None, :] - L[:, None, :, :])   # (B,Q,S,H)
-        decay = torch.where(tri[None, :, :, None], decay, 0.0)
+        # masked before the exp: above the diagonal L_q - L_s > 0 can
+        # overflow, and exp's gradient there would be 0 * inf = NaN
+        decay = torch.exp(torch.where(tri[None, :, :, None],
+                                      L[:, :, None, :] - L[:, None, :, :],
+                                      -torch.inf))                # (B,Q,S,H)
         y_diag = torch.einsum("bqsh,bshp->bqhp", cb[..., None] * decay, xbar)
         # the carried state's share
         y_off = torch.exp(L)[..., None] * torch.einsum(

@@ -6,7 +6,9 @@ step is the reference's under ``sharding_ctx(mesh, TRAIN_RULES)``: each
 gradient and fp32 accumulator lies where its parameter lies
 (``shard_like_params``: an FSDP piece's gradient arrives reduce-scattered
 through autograd, and a leaf replicated over an axis takes the sum of its
-copies' partial gradients, held once by each copy).
+copies' partial gradients, held once by each copy). Every family trains
+there; a batch's ``embeds`` or ``src_embeds`` split over "data" with its
+tokens, as their ``batch_specs`` axes ``("batch", None, None)`` say.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ def make_train_step(lm: LM, opt_cfg: adamw.AdamWConfig, *,
     """
     acc_dt = dtype_of(accum_dtype)
     if mesh is not None:
-        check_mesh_support(lm.cfg, mesh)
+        check_mesh_support(mesh)
 
     def loss_and_grads(params, batch):
         leaves, rebuild = flatten(params)

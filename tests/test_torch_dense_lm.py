@@ -145,20 +145,22 @@ def test_unported_layer_kinds_raise(what, item):
     parallelism (``item 7b``) are ported: the loss runs, and so does
     ``moe_ffn`` over a mesh (one data shard, two model shards: the
     unsharded call's capacity, so its output). What the port still lacks
-    raises, naming its ROADMAP item: the SSM, hybrid, encoder-decoder and
-    frontend families on a mesh (item 3)."""
+    raises, naming its ROADMAP item: a mesh axis beside "data" and
+    "model" (item 3); every family trains on a (data, model) mesh."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.train import main as train_main
     from repro_torch.models import moe
     from repro_torch.models.api import make_demo_inputs
+    from repro_torch.optimizer.adamw import AdamWConfig
+    from repro_torch.training.step import make_train_step
     _, cfg = cfgs("qwen3-moe-30b-a3b")
     params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
     if what == "train_loss":
         batch = make_demo_inputs(cfg, tc.ShapeConfig("t", 16, 2, "train"))
         assert torch.isfinite(LM(cfg).train_loss(params, batch))
         with pytest.raises(NotImplementedError, match="item 3"):
-            train_main(["--arch", "mamba2-2.7b", "--reduced", "--device",
-                        "cpu", "--mesh", "2,2"])
+            make_train_step(LM(cfgs("mamba2-2.7b")[1]), AdamWConfig(),
+                            mesh=make_mesh((1, 1, 2),
+                                           ("pod", "data", "model"), "cpu"))
         return
     x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator(
     ).manual_seed(1))

@@ -425,11 +425,20 @@ def test_launcher_resume_onto_another_mesh(tmp_path, capsys):
 
 
 def test_other_families_on_a_mesh_name_item_3():
+    """Every family trains on a (data, model) mesh
+    (``tests/test_torch_mesh_families.py``); what still raises names the
+    ROADMAP item that ports it: a mesh axis beside "data" and "model", for
+    each family this slice brings to the mesh, and the inspector's
+    ``--mesh`` on a prefill cell."""
+    mesh = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
     for arch in ("mamba2-2.7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium", "paligemma-3b"):
         with pytest.raises(NotImplementedError, match="item 3"):
-            train_main(["--arch", arch, "--steps", "1", "--mesh", "2,2"]
-                       + LAUNCH)
+            steplib.make_train_step(LM(cfg_of(arch)), adamw.AdamWConfig(),
+                                    mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        inspect_hlo.main(["--arch", "mamba2-2.7b", "--shape", "prefill_32k",
+                          "--mesh", "2,2", "--device", "cpu"])
 
 
 def test_mesh_on_cuda_without_the_cards_gives_the_recipe():
@@ -463,6 +472,27 @@ def test_inspector_traces_a_mesh_step(monkeypatch, capsys):
     with pytest.raises(NotImplementedError, match="item 3"):
         inspect_hlo.main(["--arch", "llama3-8b", "--shape", "d", "--mesh",
                           "2,2", "--device", "cpu"])
+
+
+def test_inspector_traces_a_mamba2_mesh_step(monkeypatch, capsys):
+    """``inspect_hlo --mesh`` on an SSM train cell: the reduced mamba2 on
+    (2, 2), whose channels and heads split over "model" (the out
+    projection's and the output norm's all-reduces) and whose weights
+    gather over "data"."""
+    orig = tc.get_config
+    monkeypatch.setattr(tc, "get_config", lambda a: orig(a).reduced())
+    monkeypatch.setattr(tc, "SHAPES",
+                        {"t": tc.ShapeConfig("t", 32, 4, "train")})
+    assert inspect_hlo.main(["--arch", "mamba2-2.7b", "--shape", "t",
+                             "--mesh", "2,2", "--device", "cpu", "--top",
+                             "5", "--microbatches", "2"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("# mamba2-2.7b t periods=1")
+    assert "mesh={'data': 2, 'model': 2}, 4 shards here" in out[0]
+    coll = [ln for ln in out if ln.startswith("# position")]
+    assert len(coll) == 4
+    assert all("'all-gather'" in ln and "'all-reduce': 0," not in ln
+               for ln in coll)
 
 
 def test_collectives_count_bytes_and_match_autograd():

@@ -135,3 +135,42 @@ def test_ssd_matches_sequential_recurrence():
                                atol=2e-4, rtol=1e-3)
     np.testing.assert_allclose(h_chunk.numpy(), h.numpy(), atol=2e-4,
                                rtol=1e-3)
+
+
+def test_ssd_gradient_finite_where_the_masked_decay_overflows():
+    """A fault of the reference (ROADMAP.md §3): it exponentiates the
+    intra-chunk decay ``L_q - L_s`` above the diagonal too and zeroes it
+    after, so where that passes fp32's exp range (a chunk of 16 steps at
+    dt·|A| ≈ 8.5 here; a 256-step chunk at full width) its gradient with
+    respect to ``dt`` (and ``A_log``) is NaN. The port masks the exponent
+    first: its forward equals the reference's, and its gradient is finite
+    and equals the reference's own gradient at chunk size 1 (the same
+    function, with nothing above a diagonal)."""
+    import jax
+    kw = dict(KW, chunk_size=16)
+    xz, params = seq_inputs(16, seed=3)
+    xz["dt"] = np.full_like(xz["dt"], 2.0)
+    params["A_log"] = np.full_like(params["A_log"], np.log(4.0))
+    params["dt_bias"] = np.zeros_like(params["dt_bias"])
+
+    def ref_loss(dt):
+        return ref_ssm.ssd_forward(dict(j(xz), dt=dt), j(params),
+                                   RefSSMConfig(**kw)).sum()
+
+    r_grad = np.asarray(jax.grad(ref_loss)(jnp.asarray(xz["dt"])))
+    assert np.isnan(r_grad).any()
+    dt = torch.from_numpy(xz["dt"]).requires_grad_()
+    y = ssm.ssd_forward(dict(t(xz), dt=dt), t(params), SSMConfig(**kw))
+    np.testing.assert_allclose(
+        y.detach().numpy(), np.asarray(ref_ssm.ssd_forward(
+            j(xz), j(params), RefSSMConfig(**kw))), **TOL)
+    (g,) = torch.autograd.grad(y.sum(), dt)
+    assert torch.isfinite(g).all()
+    # the chunked form is the recurrence at any chunk size: at chunk 1
+    # nothing lies above a diagonal, and the reference's own gradient is
+    # finite there
+    r_one = jax.grad(lambda dt: ref_ssm.ssd_forward(
+        dict(j(xz), dt=dt), j(params),
+        RefSSMConfig(**dict(kw, chunk_size=1))).sum())(jnp.asarray(xz["dt"]))
+    np.testing.assert_allclose(g.numpy(), np.asarray(r_one), atol=1e-4,
+                               rtol=1e-4)

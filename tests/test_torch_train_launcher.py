@@ -4,12 +4,15 @@
 equal to an uninterrupted run's (on the CPU the steps are deterministic);
 ``tests/test_elastic.py::test_remat_group_preserves_loss`` (``remat_group``
 1 against 2: loss within 1e-6 relative, gradients within 1e-5); ``--mesh``
-raising for the families it does not run yet; the launcher and examples refusing to run without a card unless
-asked for the CPU; and ``examples/torch/quickstart.py`` at two steps."""
+on the SSM and hybrid configs against no mesh, frontend configs failing
+alike with and without it, and a third mesh axis raising; the launcher
+and examples refusing to run without a card unless asked for the CPU; and
+``examples/torch/quickstart.py`` at two steps."""
 import dataclasses
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -70,12 +73,54 @@ def test_remat_group_preserves_loss():
 
 
 def test_mesh_raises_naming_item_3():
-    """A mesh trains the dense and MoE decoder families
-    (``tests/test_torch_mesh_train.py``); the other families raise,
-    naming the ROADMAP item that ports them."""
+    """A mesh trains every family (``tests/test_torch_mesh_families.py``);
+    what the launcher's step still refuses, a mesh axis other than "data"
+    and "model", raises naming the ROADMAP item that ports it."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optimizer.adamw import AdamWConfig
+    from repro_torch.training.step import make_train_step
+    mesh = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
     with pytest.raises(NotImplementedError, match="item 3"):
-        main(ARGS[2:] + ["--arch", "mamba2-2.7b", "--steps", "1", "--mesh",
-                         "2,2"])
+        make_train_step(LM(tc.get_config("mamba2-2.7b").reduced()),
+                        AdamWConfig(), mesh=mesh)
+
+
+MESH_ARGS = ARGS[2:] + ["--microbatches", "2", "--steps", "3", "--reduced"]
+# bf16 losses on a mesh against none: the partials add in another order
+# (mamba2 2.4e-4, jamba on (1, 2) 9.2e-4 measured on the CPU)
+BF16_RTOL = 2e-3
+# jamba on (2, 2): each data shard fills its own expert capacity (9.4e-3)
+MOE_RTOL = 2e-2
+
+
+def test_mesh_trains_ssm_and_hybrid_as_without_one():
+    """``--mesh`` on the reduced mamba2 (SSM heads and channels over
+    "model") and jamba at one whole period of 8 layers (SSM, attention,
+    MoE) against the same launcher with no mesh: the same weights and data,
+    bf16 losses within ``BF16_RTOL`` (jamba on (2, 2) within ``MOE_RTOL``:
+    its per-data-shard capacity drops other tokens)."""
+    for arch, extra, meshes in (
+            ("mamba2-2.7b", [], (("2,2", BF16_RTOL),)),
+            ("jamba-1.5-large-398b", ["--layers", "8"],
+             (("1,2", BF16_RTOL), ("2,2", MOE_RTOL)))):
+        args = MESH_ARGS + ["--arch", arch] + extra
+        whole = main(args)
+        for shape, rtol in meshes:
+            on_mesh = main(args + ["--mesh", shape])
+            assert len(on_mesh) == 3
+            np.testing.assert_allclose(on_mesh, whole, rtol=rtol,
+                                       err_msg=f"{arch} {shape}")
+
+
+@pytest.mark.parametrize("arch,key", [("paligemma-3b", "embeds"),
+                                      ("seamless-m4t-medium", "src_embeds")])
+def test_frontend_configs_fail_alike_with_and_without_mesh(arch, key):
+    """The launcher's data (``SyntheticPacked``) has tokens only, as the
+    reference launcher's: a frontend config finds no ``embeds`` or
+    ``src_embeds`` with a mesh exactly as without one."""
+    for extra in ([], ["--mesh", "2,2"]):
+        with pytest.raises(KeyError, match=key):
+            main(MESH_ARGS + ["--arch", arch] + extra)
 
 
 def load_example(name):

@@ -71,9 +71,14 @@ def port_tree(ref_lm, tree):
                                                is_leaf=is_q))
                 for i in (0, 1))
         return tree_map(adamw.Quantized, q, s)
-    return {"layers": layers_of_segments(ref_lm.program, tree["segments"]),
-            "head": {k: tree[k] for k in ("embed", "final_norm", "lm_head")
-                     if k in tree}}
+    out = {"layers": layers_of_segments(ref_lm.program, tree["segments"]),
+           "head": {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                         "frontend_proj", "enc_norm")
+                    if k in tree}}
+    if ref_lm.enc_program:
+        out["encoder"] = layers_of_segments(ref_lm.enc_program,
+                                            tree["encoder"])
+    return out
 
 
 def bridge_state(ref_lm, ref_state, cfg):

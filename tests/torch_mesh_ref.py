@@ -1,11 +1,13 @@
 """The reference's runs on a (data, model) mesh, for the port's mesh tests
-(``tests/test_torch_moe_ep.py``, ``tests/test_torch_mesh_train.py``).
+(``tests/test_torch_moe_ep.py``, ``tests/test_torch_mesh_train.py``,
+``tests/test_torch_mesh_families.py``).
 
 Run in a process of its own, with four XLA host devices forced before jax
 loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
 
     python tests/torch_mesh_ref.py moe OUT.pkl
     python tests/torch_mesh_ref.py train OUT.pkl {float32,int8}
+    python tests/torch_mesh_ref.py families OUT.pkl
 
 It pickles numpy trees. The mesh is a ``jax.sharding.Mesh`` over the
 devices, whose axes are Auto: the reference's sharding constraints run
@@ -31,6 +33,43 @@ MOE_B, MOE_S = 4, 8
 # train steps: reduced configs in fp32, batch 4 x 32 in 2 microbatches
 ARCHS = ("llama3-8b", "gemma3-1b", "qwen3-moe-30b-a3b")
 TRAIN_B, TRAIN_S, TRAIN_MB = 4, 32, 2
+# the SSM, hybrid, frontend and encoder-decoder families, reduced, in fp32,
+# on (2, 2); jamba at one whole period; and mamba2 on (1, 2) with
+# expand 3, head_dim 64 (d_in 192 splits over "model", its 3 heads do not)
+FAMILY_CASES = (("mamba2-2.7b", (2, 2), {}),
+                ("jamba-1.5-large-398b", (2, 2), {"num_layers": 8}),
+                ("paligemma-3b", (2, 2), {}),
+                ("seamless-m4t-medium", (2, 2), {}),
+                ("mamba2-2.7b", (1, 2), {"ssm": dict(expand=3, head_dim=64)}))
+
+
+def family_case_name(arch, shape):
+    return f"{arch}@{shape[0]}x{shape[1]}"
+
+
+def family_cfg(rc, arch, over):
+    """The reduced fp32 config of a ``FAMILY_CASES`` entry, from either
+    package's ``configs`` module ``rc``."""
+    cfg = rc.get_config(arch).reduced()
+    over = dict(over)
+    if "ssm" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+    return dataclasses.replace(cfg, dtype="float32", **over)
+
+
+def family_batch(cfg):
+    """``SyntheticPacked`` seed 0 (4 x 32 tokens) and, for a frontend, its
+    ``embeds`` (decoder-only) or ``src_embeds`` (encoder-decoder) of
+    ``frontend.num_embeds`` rows from numpy seed 0."""
+    from repro.data.pipeline import SyntheticPacked
+    batch = dict(next(iter(SyntheticPacked(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                           seed=0))))
+    if cfg.frontend.kind != "none":
+        key = "src_embeds" if cfg.num_encoder_layers else "embeds"
+        batch[key] = np.random.default_rng(0).standard_normal(
+            (TRAIN_B, cfg.frontend.num_embeds, cfg.frontend.embed_dim)
+        ).astype(np.float32)
+    return batch
 
 
 def moe_inputs(cfg, E, skewed, seed):
@@ -138,8 +177,36 @@ def train_runs(moments):
     return out
 
 
+def family_runs():
+    """One fp32 step of each ``FAMILY_CASES`` entry under
+    ``sharding_ctx(mesh, TRAIN_RULES)``, from ``PRNGKey(0)`` weights."""
+    import jax
+    import repro.configs as rc
+    from repro.distributed.sharding import TRAIN_RULES, sharding_ctx
+    from repro.models.lm import LM
+    from repro.optimizer import adamw
+    from repro.training import step as steplib
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    out = {}
+    for arch, shape, over in FAMILY_CASES:
+        cfg = family_cfg(rc, arch, over)
+        lm = LM(cfg)
+        batch = family_batch(cfg)
+        opt = adamw.AdamWConfig(warmup_steps=1)
+        fn = steplib.make_train_step(lm, opt, microbatches=TRAIN_MB)
+        with sharding_ctx(auto_mesh(shape), TRAIN_RULES):
+            state = steplib.init_train_state(lm, jax.random.PRNGKey(0), opt)
+            new, met = jax.jit(fn)(state, batch)
+        out[family_case_name(arch, shape)] = dict(
+            batch=batch, params0=to_np(state.params),
+            loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+            state=to_np(new))
+    return out
+
+
 if __name__ == "__main__":
     what, path = sys.argv[1], sys.argv[2]
-    res = moe_runs() if what == "moe" else train_runs(sys.argv[3:])
+    res = (moe_runs() if what == "moe" else family_runs()
+           if what == "families" else train_runs(sys.argv[3:]))
     with open(path, "wb") as fh:
         pickle.dump(res, fh)
