@@ -21,7 +21,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paged kernel's output for one sequence bitwise equal alone and in a
    batch; ``quant_store_tokens`` on the card against the CPU; paged
    attention (both modes) and flash at a tensor-parallel shard's heads,
-   llama3-8b's tp=2 (16/4/128) and tp=8 (4/1/128);
+   llama3-8b's tp=2 (16/4/128) and tp=8 (4/1/128); flash at phase 17's
+   prefill shards (llama3-8b 16/4/128 over 1016 tokens, the reduced
+   gemma3-1b 2/1/16 under its 32-token window);
 4. timing: each kernel at main-path shapes (CUDA events, median after
    warm-up) beside its bound, its plain version and a library yardstick;
    paged attention also at the main path's decode batch (B=8, ctx 1024,
@@ -95,13 +97,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k --mesh
    both``, each of which must exit 0;
 14. tensor parallelism (target 90 s): (a) llama3-8b at full width in
-   bf16 at tp=2 with both shards on the card (``device=["cuda:0",
-   "cuda:0"]``), phase 5's prompts and weights, 1024 and 119 HBM blocks,
-   bf16 and int8 KV: run (b) rotates, a shard holds and moves half the
-   bytes, each shard's paged launch is counted (twice the runner's layer
-   launches), all three kernels launch, and no request's first divergence
-   from phase 5's streams has both top-2 margins above
-   ``DIVERGENCE_TIE`` (the partials add in bf16); run (a) traced: wall,
+   bf16, cut to ``TP_DEPTH`` (8) of its 32 layers, at tp=1 and at tp=2
+   with both shards on the card (``device=["cuda:0", "cuda:0"]``), phase
+   5's prompts and seed, 1024 and 119 HBM blocks, bf16 and int8 KV: run
+   (b) rotates, a shard holds and moves half the bytes, each shard's paged
+   launch is counted (twice the runner's layer launches), all three
+   kernels launch, and no request's first divergence from tp=1's streams
+   has both top-2 margins above ``DIVERGENCE_TIE`` (the partials add in
+   bf16); run (a) traced: wall,
    busy share, peak memory. Stacked shards do the same work with twice
    the launches: no number here is a TP speed-up. (b) the reduced
    llama3-8b in fp32 (8/4/16) at tp 1, 2 and 4 under rotation, the
@@ -159,7 +162,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    checkpoint of the reduced mamba2 saved on (2, 2) restored on (1, 2).
    Phase 3 also checks flash at this phase's shard heads (paligemma (4,
    1, 256) causal, seamless (8, 8, 64) non-causal and cross-attention)
-   and ``FlashAttention``'s gradient at seamless's encoder shard.
+   and ``FlashAttention``'s gradient at seamless's encoder shard;
+17. prefill and decode on a mesh (target 60 s; cell S12), four positions
+   stacked on the card: (a) llama3-8b at full width and depth, seeded
+   bf16 weights (seed 0) placed on (2, 2) beside a copy with no mesh; 4
+   prompts of 1,016 tokens (numpy seed 13) prefilled at capacity 4,096
+   under ``PREFILL_RULES`` (flash at each position's 16 q heads: 32 x 4
+   launches, counted), the caches moved to ``DECODE_RULES`` (their
+   sequence over the whole grid, four pieces of 1,024), 32 greedy decode
+   steps across the piece boundary at slot 1,024, against the same with
+   no mesh (``CONTINUITY_TOL``; a stream parts only where not both top-2
+   margins exceed ``DIVERGENCE_TIE``); bytes a position for weights and
+   caches == the dry-run's under both rule sets; the prefill's and a
+   decode step's walls, one traced decode step's busy share and top
+   operations, the peak memory, the collective bytes a position a step
+   by kind (== ``serve_mesh_decode_bytes`` from the shapes) and the
+   roofline's terms. Stacked positions do the same work from one host
+   thread: no wall here is a speed-up. (b) the reduced llama3-8b and
+   gemma3-1b (6 layers, rings of 32) in fp32 on (2, 2), (1, 4) and (4, 1)
+   stacked on the card against the CPU (logits within 1e-5 relative). (c)
+   (a) over four cards, only where the machine has them
+   (``scripts/mesh_cards.py --phase 17`` runs it there).
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -497,6 +520,21 @@ def mesh_shard_checks(torch, ops, ref, errs, dev="cuda"):
                   f" B=1 Sq={Sq} Skv={S} "
                   f"{'causal' if causal else 'non-causal'}",
                   got, want, TOL[dname], errs)
+    # phase 17's prefill shards on (2, 2), one data row's 2 prompts: the
+    # full llama3-8b's 1016 tokens, the reduced gemma3-1b's 28 (window 32)
+    for label, H, Hkv, D, Sp, win in (
+            ("llama3-8b (2, 2) prefill shard", 16, 4, 128, 1016, 0),
+            ("reduced gemma3-1b (2, 2) prefill shard", 2, 1, 16, 28, 32)):
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v = (torch.randn((2, Sp, h, D), generator=g,
+                                   device=dev).to(dt) for h in (H, Hkv, Hkv))
+            got = ops.flash_attention(q, k, v, causal=True, window=win,
+                                      force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=True, window=win)
+            torch.cuda.synchronize()
+            check("flash_attention", dname, f"{label} H/Hkv/D={H}/{Hkv}/{D},"
+                  f" B=2 T={Sp} causal window {win}", got, want, TOL[dname],
+                  errs)
     for label, H, Hkv, D, causal, win in (
             ("gemma3-1b's (2, 2) shard heads 2/1/256, window 512", 2, 1, 256,
              True, 512),
@@ -2035,7 +2073,9 @@ def first_divergences(a, b):
 def tp_full_width(torch, cfg, prompts, full, mesh=("cuda:0", "cuda:0")):
     """Phase 14 (a): llama3-8b at full width in bf16 at tp=2 over ``mesh``
     (both shards stacked on the card), with phase 5's prompts and weights
-    (seed 0), at S1's 1024 and 119 HBM blocks, bf16 and int8 KV."""
+    (seed 0), at S1's 1024 and 119 HBM blocks, bf16 and int8 KV, against
+    ``full``, tp=1's runs of ``cfg`` (``serving_runs``; phase 14 cuts
+    ``cfg`` to ``TP_DEPTH`` layers)."""
     from repro_torch.models.common import dtype_of
     from repro_torch.models.params import init_params
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2085,7 +2125,8 @@ def tp_full_width(torch, cfg, prompts, full, mesh=("cuda:0", "cuda:0")):
             share, first = agreement(one, r)
             divs = first_divergences(one, r)
             bad = [d for d in divs if min(d[2], d[3]) > DIVERGENCE_TIE]
-            log(f"tp=2 vs tp=1 (phase 5) {kvd} run ({run}): {share:.4f} of "
+            log(f"tp=2 vs tp=1 ({cfg.num_layers} layers) {kvd} run ({run}): "
+                f"{share:.4f} of "
                 f"tokens agree; first divergence (req, step, margin tp=1, "
                 f"margin tp=2): {first}; {len(divs)} requests diverge, "
                 f"{len(bad)} with both margins above {DIVERGENCE_TIE}; "
@@ -2196,17 +2237,28 @@ def tp_reduced(torch, cfg, mesh_of, label):
         raise AssertionError("int8 shard scales are not the pool's slices")
 
 
-def tp_phase(torch, cfg, prompts, full):
+# phase 14 (a)'s depth: 8 of llama3-8b's 32 layers, at full width, held to
+# tp=1 at the same depth (at 32 layers it took 143.4 s of the script's
+# 1200, PERF.md §7)
+TP_DEPTH = 8
+
+
+def tp_phase(torch, cfg, prompts):
     """Tensor parallelism on the card (target 90 s): (a) full width at
-    tp=2 stacked on one card, (b) the reduced fp32 matrix, (c) (b) over two
-    cards where the machine has them. Returns the phase's kernel
-    launches."""
+    ``TP_DEPTH`` layers, tp=2 stacked on one card against tp=1, (b) the
+    reduced fp32 matrix, (c) (b) over two cards where the machine has
+    them. Returns the phase's kernel launches."""
     from repro_torch.kernels import ops
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    tp_full_width(torch, cfg, prompts, full)
+    cut = dataclasses.replace(cfg, num_layers=TP_DEPTH)
+    sv_kw = dict(block_size=16, prefill_chunk=512)
+    one = {kvd: serving_runs(torch, cut, prompts, dict(sv_kw, kv_dtype=kvd),
+                             1024, "cuda", f"llama3-8b at {TP_DEPTH} layers "
+                             f"tp=1 {kvd} KV") for kvd in ("bf16", "int8")}
+    tp_full_width(torch, cut, prompts, one)
     log(f"phase 14 (a) wall: {time.perf_counter() - t_phase:.2f} s")
     t0 = time.perf_counter()
     tp_reduced(torch, cfg, lambda tp: ["cuda:0"] * tp, "tp stacked")
@@ -3057,6 +3109,324 @@ def mesh_families_phase(torch):
     return launches
 
 
+# --------------------------------------------------------------- phase 17
+
+# phase 17 (b): the reduced configs' logits, card against CPU (relative)
+SERVE_MESH_CPU_RTOL = 1e-5
+
+
+def serve_mesh_decode_bytes(cfg, D, M, B):
+    """The collective bytes a position counts in one decode step of
+    ``cfg`` (an attention-only config, weights at ``cfg.dtype``) on a (D,
+    M) mesh under ``DECODE_RULES`` with batch B, from the shapes, each at
+    its result's size: a layer all-reduces over "data" the fp32 sums of
+    squares of its two norms (B, 1) and the partials of q (B, H/M, hd), k
+    and v (B, Hkv/M, hd), w_gate and w_up (B, d_ff/M); over "model" the
+    partials of wo and w_down (B, d/D); over the grid the softmax's fp32
+    max and weight sums (B, Hkv, G, 1) and outputs (B, Hkv, G, hd); it
+    all-gathers over "model" q (B, H, hd) and the new k and v (B, Hkv,
+    hd). The head all-reduces the embedding (B, d/D) over "model", the
+    final norm's sum of squares, the logits' partials (B, V/M) over
+    "data", and all-gathers the logits (B, V) over "model"."""
+    from repro_torch.models.common import dtype_of
+    e = dtype_of(cfg.dtype).itemsize
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, f, V = H // Hkv, cfg.d_ff, cfg.vocab_size
+    layer_ar = (2 * B * 4 + B * (H // M) * hd * e + 2 * B * (Hkv // M) * hd
+                * e + 2 * B * (f // M) * e + 2 * B * (d // D) * e
+                + 2 * B * Hkv * G * 4 + B * Hkv * G * hd * 4)
+    layer_ag = B * H * hd * e + 2 * B * Hkv * hd * e
+    L = cfg.num_layers
+    return {"all-reduce": L * layer_ar + B * (d // D) * e + B * 4
+            + B * (V // M) * e,
+            "all-gather": L * layer_ag + B * V * e, "reduce-scatter": 0}
+
+
+def greedy_run(torch, lm, params, toks, cap, steps, mesh=None):
+    """``lm.prefill`` of ``toks`` (B, S) at ``cap``, then ``steps`` greedy
+    ``decode_step``s; on ``mesh``, the prefill's caches moved to the
+    decode layout between the two (``LM.caches_for_decode``, outside the
+    timed decode). Returns each step's logits in fp32 (the prefill's
+    first; position 0's on a mesh), the prefill's flash launches, its
+    caches' bytes a position (on a mesh), the walls, and the caches."""
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import ops
+    S = toks.shape[1]
+    sync = torch.cuda.synchronize
+    sync()
+    before = ops.launch_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(params, {"tokens": toks}, cap, mesh=mesh)
+    sync()
+    res = dict(prefill_s=time.perf_counter() - t0,
+               flash=ops.launch_counts()["flash_attention"] - before)
+    if mesh is not None:
+        logits = logits[0]
+        res["prefill_cache_bytes"] = spmd.bytes_per_position(caches)
+        spmd.reset_collective_bytes()
+        t0 = time.perf_counter()
+        caches = lm.caches_for_decode(caches)
+        sync()
+        res["relayout_s"] = time.perf_counter() - t0
+        res["moved"] = [spmd.moved_bytes(r) for r in range(mesh.size)]
+        res["decode_cache_bytes"] = spmd.bytes_per_position(caches)
+    out = [logits.float()]
+    tok = out[-1].argmax(-1)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        z, caches = lm.decode_step(params, caches, {
+            "token": tok, "cache_len": S + i}, mesh=mesh)
+        out.append((z[0] if mesh is not None else z).float())
+        tok = out[-1].argmax(-1)
+    sync()
+    res.update(step_s=(time.perf_counter() - t0) / steps, logits=out,
+               caches=caches)
+    return res
+
+
+def streams_agree(torch, want, got, label):
+    """``got``'s greedy steps against ``want``'s, row by row: each step's
+    logits within ``CONTINUITY_TOL`` of the largest |logit| up to the
+    row's first divergence (past it the two decode other tokens), and a
+    divergence only where not both top-2 margins exceed
+    ``DIVERGENCE_TIE``. Returns (worst relative gap, divergences as (row,
+    step, margin want, margin got))."""
+    B = want[0].shape[0]
+    worst_rel, divs = 0.0, []
+    for b in range(B):
+        for t, (w, g) in enumerate(zip(want, got)):
+            gap = (w[b] - g[b]).abs().max().item()
+            rel = gap / w[b].abs().max().item()
+            worst_rel = max(worst_rel, rel) if np.isfinite(rel) else rel
+            if not np.isfinite(rel) or rel > CONTINUITY_TOL:
+                raise AssertionError(f"{label}: row {b} step {t}: max "
+                                     f"|dlogit| {gap} is {rel:.4f} of the "
+                                     f"largest logit")
+            if w[b].argmax() != g[b].argmax():
+                m = [(x[b].topk(2).values[0] - x[b].topk(2).values[1]).item()
+                     for x in (w, g)]
+                divs.append((b, t, m[0], m[1]))
+                if min(m) > DIVERGENCE_TIE:
+                    raise AssertionError(f"{label}: row {b} parts at step "
+                                         f"{t} with top-2 margins {m}")
+                break
+    return worst_rel, divs
+
+
+def serve_mesh_full(torch, devices, label):
+    """Phase 17 (a): llama3-8b at full width and depth, seeded bf16
+    weights (``init_lm_params``, seed 0, as phase 5 draws them), placed on
+    a (2, 2) mesh over ``devices`` beside a copy with no mesh; 4 prompts
+    of 1,016 tokens (numpy seed 13: the first 4 of phase 13's decode
+    prompts) prefilled at capacity 4,096 under ``PREFILL_RULES``, the
+    caches moved to ``DECODE_RULES``, then 32 greedy decode steps, held to
+    the same with no mesh (``streams_agree``); bytes a position against
+    the dry-run, flash launched once a layer a position in the prefill,
+    then one traced decode step (busy share, top operations, collective
+    bytes a position against ``serve_mesh_decode_bytes``) and one under
+    ``FlopCounterMode`` for the roofline's terms."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import DECODE_RULES, PREFILL_RULES
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.inspect_hlo import top_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import specs_logical_axes, specs_to_structs
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import init_lm_params
+    cfg = get_config("llama3-8b")
+    lm = LM(cfg)
+    B, plen, cap, steps = 4, 1016, 4096, 32
+    for d in sorted(set(devices)):
+        torch.cuda.reset_peak_memory_stats(d)
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(np.stack([rng.integers(1, cfg.vocab_size, plen)
+                                      for _ in range(B)])).long().cuda()
+    params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    mesh = make_mesh((2, 2), ("data", "model"), list(devices))
+    t0 = time.perf_counter()
+    placed = spmd.place_tree(params, lm.param_axes(), mesh, PREFILL_RULES)
+    place_s = time.perf_counter() - t0
+    held = spmd.bytes_per_position(placed)
+    specs = lm.cache_specs(B, cap)
+    want = {}
+    for name, rules in (("prefill", PREFILL_RULES), ("decode", DECODE_RULES)):
+        want[name] = (dryrun.tree_bytes_per_device(
+            lm.param_structs(), lm.param_axes(), mesh, rules),
+            dryrun.tree_bytes_per_device(specs_to_structs(specs),
+                                         specs_logical_axes(specs), mesh,
+                                         rules))
+    one = greedy_run(torch, lm, params, toks, cap, steps)
+    got = greedy_run(torch, lm, placed, toks, cap, steps, mesh)
+    log(f"serve mesh (a) {label}: bytes a position: weights {held} (dry-run "
+        f"{want['prefill'][0]:.0f} under PREFILL_RULES, "
+        f"{want['decode'][0]:.0f} under DECODE_RULES), caches "
+        f"{got['prefill_cache_bytes']} after the prefill (dry-run "
+        f"{want['prefill'][1]:.0f}), {got['decode_cache_bytes']} after the "
+        f"move to the decode layout (dry-run {want['decode'][1]:.0f}), "
+        f"which copied {got['moved']} B a position in "
+        f"{got['relayout_s'] * 1e3:.1f} ms; weights placed in {place_s:.2f} s")
+    if not (held == [want["prefill"][0]] * 4 == [want["decode"][0]] * 4
+            and got["prefill_cache_bytes"] == [want["prefill"][1]] * 4
+            and got["decode_cache_bytes"] == [want["decode"][1]] * 4):
+        raise AssertionError(f"serve mesh (a) {label}: bytes a position "
+                             f"differ from the dry-run's")
+    n_flash = cfg.num_layers * mesh.size
+    log(f"serve mesh (a) {label}: flash launches in the prefill {got['flash']}"
+        f" ({cfg.num_layers} layers x {mesh.size} positions = {n_flash}); "
+        f"no mesh {one['flash']}")
+    if got["flash"] != n_flash or one["flash"] != cfg.num_layers:
+        raise AssertionError(f"serve mesh (a) {label}: flash launched "
+                             f"{got['flash']} times, not {n_flash}")
+    rel, divs = streams_agree(torch, one["logits"], got["logits"],
+                              f"serve mesh (a) {label}")
+    log(f"serve mesh (a) {label}: {steps} greedy steps against no mesh: "
+        f"logits within {rel:.4e} of the largest |logit| up to each row's "
+        f"first divergence (tolerance {CONTINUITY_TOL}); divergences (row, "
+        f"step, margin no mesh, margin mesh): {divs}")
+    log(f"serve mesh (a) {label}: prefill of {B} x {plen} tokens "
+        f"{got['prefill_s'] * 1e3:.1f} ms on the mesh, "
+        f"{one['prefill_s'] * 1e3:.1f} ms with no mesh; decode "
+        f"{got['step_s'] * 1e3:.1f} ms a step on the mesh, "
+        f"{one['step_s'] * 1e3:.1f} ms with no mesh (mean of {steps}); the "
+        f"positions run from one host thread: no wall here is a speed-up")
+    caches = got["caches"]
+    tok = got["logits"][-1].argmax(-1)
+    del one, got["logits"]
+    gc.collect()
+    # one traced decode step and one counted, past the compared ones
+    spmd.reset_collective_bytes()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        z, caches = lm.decode_step(placed, caches, {
+            "token": tok, "cache_len": plen + steps}, mesh=mesh)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    coll = [spmd.collective_bytes(r) for r in range(mesh.size)]
+    pred = serve_mesh_decode_bytes(cfg, 2, 2, B)
+    rows = top_ops(prof, mesh.devices[0])
+    busy = sum(ms for ms, _ in rows.values())
+    tops = sorted(rows.items(), key=lambda kv: -kv[1][0])[:6]
+    with FlopCounterMode(display=False) as fc:
+        lm.decode_step(placed, caches, {"token": z[0].argmax(-1),
+                                        "cache_len": plen + steps + 1},
+                       mesh=mesh)
+    flops = float(fc.get_total_flops()) / mesh.size
+    shape = ShapeConfig("s12_decode", plen + steps, B, "decode")
+    mem = roofline.analytic_memory_bytes(
+        cfg, shape, weights_local=held[0], opt_local=0,
+        cache_local=want["decode"][1], data_shards=1, model_shards=2,
+        fsdp_shards=2)
+    terms = roofline.roofline_terms(flops, mem["total"],
+                                    sum(coll[0].values()))
+    peaks = [torch.cuda.max_memory_allocated(d) for d in sorted(set(devices))]
+    log(f"serve mesh (a) {label}: a traced decode step {traced_s * 1e3:.1f} "
+        f"ms of wall, device busy {busy:.1f} ms ({busy / (traced_s * 1e3):.3f}"
+        f" of wall); top device operations (ms, calls): "
+        + "; ".join(f"{n[:60]} {ms:.2f} ({c})" for n, (ms, c) in tops))
+    log(f"serve mesh (a) {label}: collective bytes a position a decode step "
+        f"{coll} (predicted from the shapes {pred}); roofline a position: "
+        f"FLOPs {flops:.4e}, bytes {mem['total']:.4e}, compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.4f} ms ({terms['bottleneck']}); "
+        f"peak memory {peaks} B (the no-mesh copy and its caches included)")
+    if any(c != pred for c in coll):
+        raise AssertionError(f"serve mesh (a) {label}: collective bytes "
+                             f"{coll} differ from the shapes' {pred}")
+    del params, placed, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(traced_s=traced_s, busy_ms=busy, coll=coll[0], peaks=peaks,
+                terms=terms)
+
+
+def serve_mesh_reduced(torch):
+    """Phase 17 (b): the reduced llama3-8b and gemma3-1b (6 layers, five
+    local with 32-token rings, one global) in fp32 on (2, 2), (1, 4) and
+    (4, 1) stacked on the card against the same on the CPU: prefill of 4 x
+    28 tokens at capacity 64, the move to the decode layout, 6 decode
+    steps on fixed tokens (slots 28-33, across a piece boundary and round
+    the rings), every step's logits within ``SERVE_MESH_CPU_RTOL`` of the
+    largest |logit| and every position's equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import PREFILL_RULES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import init_lm_params
+    for arch, over in (("llama3-8b", {}), ("gemma3-1b", {"num_layers": 6})):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32", **over)
+        lm = LM(cfg)
+        params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 34))).long()
+        for shape in ((2, 2), (1, 4), (4, 1)):
+            runs = []
+            for where in ("cpu", "cuda"):
+                mesh = make_mesh(shape, ("data", "model"), [where] * 4)
+                placed = spmd.place_tree(params, lm.param_axes(), mesh,
+                                         PREFILL_RULES)
+                z, caches = lm.prefill(placed, {"tokens": toks[:, :28].to(
+                    where)}, 64, mesh=mesh)
+                caches = lm.caches_for_decode(caches)
+                out = [z]
+                for i in range(6):
+                    z, caches = lm.decode_step(placed, caches, {
+                        "token": toks[:, 28 + i].to(where),
+                        "cache_len": 28 + i}, mesh=mesh)
+                    out.append(z)
+                for step in out:
+                    if any(not torch.equal(t, step[0]) for t in step[1:]):
+                        raise AssertionError(f"serve mesh (b) {arch} {shape}"
+                                             f": positions' logits differ")
+                runs.append([step[0].cpu() for step in out])
+            rel = max(((a - b).abs().max() / a.abs().max()).item()
+                      for a, b in zip(*runs))
+            log(f"serve mesh (b) {cfg.name} fp32 on {shape} stacked, card vs "
+                f"CPU: prefill and 6 decode steps' logits within {rel:.3e} "
+                f"relative (tolerance {SERVE_MESH_CPU_RTOL})")
+            if not rel <= SERVE_MESH_CPU_RTOL:
+                raise AssertionError(f"serve mesh (b): {arch} {shape} card "
+                                     f"!= CPU ({rel})")
+
+
+def serve_mesh_phase(torch):
+    """Prefill and decode on a (data, model) mesh (cell S12; target 60 s):
+    (a) llama3-8b at full width and depth on (2, 2) stacked on the card
+    against no mesh (``serve_mesh_full``), (b) the reduced fp32 configs on
+    three meshes, card against CPU (``serve_mesh_reduced``), (c) (a) over
+    four cards where the machine has them. Returns the phase's kernel
+    launches."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    serve_mesh_full(torch, MESH_STACK, "stacked")
+    log(f"phase 17 (a) wall: {time.perf_counter() - t_phase:.2f} s")
+    t0 = time.perf_counter()
+    serve_mesh_reduced(torch)
+    log(f"phase 17 (b) wall: {time.perf_counter() - t0:.2f} s")
+    n = torch.cuda.device_count()
+    if n >= 4:
+        t0 = time.perf_counter()
+        serve_mesh_full(torch, [f"cuda:{i}" for i in range(4)],
+                        "over four cards")
+        log(f"phase 17 (c) wall: {time.perf_counter() - t0:.2f} s")
+    else:
+        log(f"phase 17 (c) not run: it needs four cards, torch sees {n} "
+            f"(scripts/mesh_cards.py --phase 17 runs (a) over four)")
+    launches = ops.launch_counts()
+    log(f"serve mesh path kernel launches: {launches}")
+    log(f"phase 17 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main(argv) -> int:
     if argv not in ([], ["--timing"]):
         log("usage: chip_smoke.py [--timing]")
@@ -3201,13 +3571,16 @@ def main(argv) -> int:
 
     # 14. tensor parallelism: llama3-8b at tp=2 on the card, the reduced
     # matrix on the card against the CPU
-    launches["tp"] = tp_phase(torch, cfg, prompts, full)
+    launches["tp"] = tp_phase(torch, cfg, prompts)
 
     # 15. training on a (data, model) mesh, shards stacked on the card
     launches["mesh"] = mesh_phase(torch, *train_ref)
 
     # 16. the SSM, hybrid, frontend and encoder-decoder families on a mesh
     launches["mesh_families"] = mesh_families_phase(torch)
+
+    # 17. prefill and decode of a dense decoder on a mesh
+    launches["mesh_serve"] = serve_mesh_phase(torch)
 
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
@@ -3234,7 +3607,8 @@ def main(argv) -> int:
                                 ("14_tp", launches["tp"]),
                                 ("15_mesh", launches["mesh"]),
                                 ("16_mesh_families",
-                                 launches["mesh_families"]))})
+                                 launches["mesh_families"]),
+                                ("17_mesh_serve", launches["mesh_serve"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py`` phase 16 (a), or phase 15 (a), with its shards on
-separate cards: the cross-card path of training on a (data, model) mesh
-(each position's pieces and kernels on its own card, the collectives
-across cards).
+"""``chip_smoke.py`` phase 16 (a), phase 15 (a) or phase 17 (a), with its
+shards on separate cards: the cross-card path of training, or of prefill
+and decode, on a (data, model) mesh (each position's pieces and kernels
+on its own card, the collectives across cards).
 
 Needs a host with at least four CUDA cards. It builds the kernels, then
 trains mamba2-2.7b (phase 16, the default: 2 steps) or gemma3-1b
@@ -17,10 +17,12 @@ a checkpoint at its end. The mesh runs' losses must lie within
 Phase 16 adds a control with no mesh at
 all: one microbatch of 4 rows in place of two of 2, the same step with
 its bf16 adds in another order, whose state gap to the two-microbatch
-run is the noise floor of the check (printed, not held). Run from the
-repository root:
+run is the noise floor of the check (printed, not held). ``--phase 17``
+runs ``chip_smoke.serve_mesh_full`` (llama3-8b's prefill of 4 x 1016
+tokens and 32 greedy decode steps on (2, 2) against no mesh) stacked on
+``cuda:0`` and over ``cuda:0..3``. Run from the repository root:
 
-    python3 scripts/mesh_cards.py [--phase 15]
+    python3 scripts/mesh_cards.py [--phase 15|17]
 
 It prints the card's name, power limit and count, each run's lines with
 each card's peak memory, and last one JSON object with the runs' losses,
@@ -41,13 +43,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
-ARCH = {15: "gemma3-1b", 16: "mamba2-2.7b"}
+ARCH = {15: "gemma3-1b", 16: "mamba2-2.7b", 17: "llama3-8b"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", type=int, choices=sorted(ARCH), default=16)
-    arch = ARCH[ap.parse_args(argv).phase]
+    phase = ap.parse_args(argv).phase
+    arch = ARCH[phase]
     n = torch.cuda.device_count()
     if n < 4:
         print(f"mesh_cards: needs four CUDA cards, torch sees {n}",
@@ -66,6 +69,19 @@ def main(argv=None) -> int:
     for i in range(4):      # a context on each card, for its memory stats
         torch.zeros(1, device=f"cuda:{i}")
     _build.build()
+    if phase == 17:
+        out = {}
+        for name, devs in (("stacked", cs.MESH_STACK),
+                           ("four cards", [f"cuda:{i}" for i in range(4)])):
+            t0 = time.perf_counter()
+            res = cs.serve_mesh_full(torch, devs, name)
+            out[name] = dict(wall_s=time.perf_counter() - t0,
+                             traced_step_s=res["traced_s"],
+                             busy_ms=res["busy_ms"], peak_bytes=res["peaks"])
+            cs.log(f"{name}: {out[name]}")
+        print("\n".join(card))
+        print(json.dumps({"mesh_cards": out, "arch": arch}), flush=True)
+        return 0
     steps = 2 if arch == "mamba2-2.7b" else 3
     args = ["--arch", arch, "--steps", str(steps), "--batch", "4", "--seq",
             "1024", "--moments-dtype", "int8", "--log-every", "1"]

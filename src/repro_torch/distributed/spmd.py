@@ -11,8 +11,9 @@ several mesh axes indexed major to minor as the spec lists them, as
 hold copies of it, each its own tensor.
 
 An activation over the mesh is a plain list with one tensor per position.
-The collectives take such a list and one mesh axis and work on each group
-of positions along that axis, in a fixed order on the group's first
+The collectives take such a list and one mesh axis, or a tuple of axes
+(``("data", "model")`` is the whole grid), and work on each group of
+positions along those axes, in a fixed order on the group's first
 device: :func:`all_reduce` (the sum, then the sum on every member),
 :func:`all_reduce_max` (no gradient), and :func:`all_gather` along a dim.
 The first and the last are differentiable: the gradient of an all-reduce
@@ -22,12 +23,15 @@ collective adds, for each member, the bytes of its result to the counter
 of its kind (the reference's result-shape convention: an all-reduce
 counts the whole tensor, an all-gather the gathered one, a reduce-scatter
 a member's piece); :func:`collective_bytes` reads them per position.
+:func:`relayout_tree` moves placed tensors to another layout (the
+reference's ``device_put`` between two cells), each position copying
+what it lacks from a holder; :func:`moved_bytes` counts what it copied.
 """
 from __future__ import annotations
 
 import collections
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,10 +43,21 @@ from repro_torch.tree import flatten, tree_leaves, tree_map
 KINDS = ("all-reduce", "all-gather", "reduce-scatter")
 _BYTES: Dict[str, Dict[int, int]] = collections.defaultdict(
     lambda: collections.defaultdict(int))
+_MOVED: Dict[int, int] = collections.defaultdict(int)
+Axes = Union[str, Tuple[str, ...]]
 
 
 def reset_collective_bytes() -> None:
     _BYTES.clear()
+    _MOVED.clear()
+
+
+def moved_bytes(position: Optional[int] = None) -> int:
+    """Bytes :func:`relayout` copied into ``position`` from other
+    positions since the last reset, or the most any position took."""
+    if position is not None:
+        return _MOVED.get(position, 0)
+    return max(_MOVED.values(), default=0)
 
 
 def collective_bytes(position: Optional[int] = None) -> Dict[str, int]:
@@ -90,13 +105,25 @@ def pieces_per_dim(spec: PSpec, mesh: Mesh) -> Tuple[int, ...]:
     return tuple(math.prod(shape[a] for a in _axes_of(p)) for p in spec)
 
 
+def piece_ranges(spec: PSpec, shape, mesh: Mesh, r: int
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """(first index, size) along every dim of ``shape`` of the piece that
+    position ``r`` holds."""
+    idx = piece_index(spec, mesh, r)
+    cuts = pieces_per_dim(spec, mesh)
+    out = []
+    for d, size in enumerate(shape):
+        n = cuts[d] if d < len(cuts) else 1
+        step = size // n
+        out.append(((idx[d] if d < len(idx) else 0) * step, step))
+    return tuple(out)
+
+
 def _narrow(x: torch.Tensor, spec: PSpec, mesh: Mesh, r: int
             ) -> torch.Tensor:
-    for d, (i, n) in enumerate(zip(piece_index(spec, mesh, r),
-                                   pieces_per_dim(spec, mesh))):
-        if n > 1:
-            step = x.shape[d] // n
-            x = x.narrow(d, i * step, step)
+    for d, (lo, n) in enumerate(piece_ranges(spec, x.shape, mesh, r)):
+        if n != x.shape[d]:
+            x = x.narrow(d, lo, n)
     return x
 
 
@@ -134,6 +161,14 @@ class Placed:
         p = self.pieces[r]
         return p.numel() * p.element_size()
 
+    def ranges(self, r: int) -> Tuple[Tuple[int, int], ...]:
+        """(first index, size) of position ``r``'s piece along each dim."""
+        return piece_ranges(self.spec, self.shape, self.mesh, r)
+
+    def first_holder(self, r: int) -> bool:
+        """Whether ``r`` is the first position holding its piece."""
+        return next(m for m in self.holders() if r in m)[0] == r
+
     def __repr__(self):
         return (f"Placed(shape={self.shape}, spec={self.spec}, "
                 f"dtype={self.dtype}, mesh={self.mesh.axis_sizes})")
@@ -155,6 +190,18 @@ def place(x: torch.Tensor, logical_axes, mesh: Mesh,
     axes = tuple(logical_axes or ())
     return place_spec(x, pspec_for(axes, mesh, rules, tuple(x.shape)),
                       mesh, axes)
+
+
+def zeros(shape, dtype: torch.dtype, logical_axes, mesh: Mesh,
+          rules: ShardingRules) -> Placed:
+    """A tensor of zeros laid out as ``place`` would lay it, each piece
+    allocated on its own position (nothing whole)."""
+    axes = tuple(logical_axes or ())
+    spec = pspec_for(axes, mesh, rules, tuple(shape))
+    pieces = [torch.zeros([n for _, n in piece_ranges(spec, shape, mesh, r)],
+                          dtype=dtype, device=mesh.devices[r])
+              for r in range(mesh.size)]
+    return Placed(pieces, spec, shape, mesh, axes)
 
 
 def place_spec(x: torch.Tensor, spec: PSpec, mesh: Mesh,
@@ -202,6 +249,51 @@ def place_tree(tree, axes_tree, mesh: Mesh, rules: ShardingRules):
     return rebuild(out)
 
 
+def relayout(x: Placed, spec: PSpec) -> Placed:
+    """``x`` cut by ``spec`` instead: each position builds its new piece
+    from the old pieces that overlap it, its own where it holds one, else
+    the first holder's, and counts the bytes it copied from another
+    position (:func:`moved_bytes`). Nothing is gathered whole."""
+    mesh = x.mesh
+    for d, n in enumerate(pieces_per_dim(spec, mesh)):
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of size {x.shape[d]} is not "
+                             f"divisible by its {n} pieces")
+    old = x.holders()
+    out = []
+    for r in range(mesh.size):
+        want = piece_ranges(spec, x.shape, mesh, r)
+        piece = torch.empty([n for _, n in want], dtype=x.dtype,
+                            device=mesh.devices[r])
+        for members in old:
+            src = r if r in members else members[0]
+            have = x.ranges(src)
+            box = [(max(a, b), min(a + m, b + n))
+                   for (a, m), (b, n) in zip(have, want)]
+            if any(lo >= hi for lo, hi in box):
+                continue
+            part, dst = x.pieces[src], piece
+            for d, ((lo, hi), (a, _), (b, _)) in enumerate(
+                    zip(box, have, want)):
+                part = part.narrow(d, lo - a, hi - lo)
+                dst = dst.narrow(d, lo - b, hi - lo)
+            dst.copy_(part)
+            if src != r:
+                _MOVED[r] += _nbytes(part)
+        out.append(piece)
+    return Placed(out, spec, x.shape, mesh, x.axes)
+
+
+def relayout_tree(tree, rules: ShardingRules):
+    """:func:`relayout` over a tree's ``Placed`` leaves to the specs
+    ``pspec_for`` gives their logical axes under ``rules``: the
+    counterpart of :func:`place_tree` for tensors already placed."""
+    return tree_map(
+        lambda x: relayout(x, pspec_for(x.axes or (), x.mesh, rules,
+                                        x.shape)) if is_placed(x) else x,
+        tree)
+
+
 def gather_tree(tree, device=None):
     """Every ``Placed`` leaf of ``tree`` as its whole tensor."""
     return tree_map(lambda x: gather(x, device) if is_placed(x) else x,
@@ -219,21 +311,33 @@ def bytes_per_position(tree) -> List[int]:
 
 
 # --------------------------------------------------------------------------
-# Collectives over one mesh axis
+# Collectives over mesh axes
 # --------------------------------------------------------------------------
 
-def groups(mesh: Mesh, axis: str) -> List[List[int]]:
-    """The positions along ``axis`` for each setting of the other axes,
-    each list in order of the axis index (one position each when the mesh
-    has no such axis)."""
-    if axis not in mesh.shape:
+def _axes_tuple(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def groups(mesh: Mesh, *axes: str) -> List[List[int]]:
+    """The positions that vary along ``axes`` together, for each setting
+    of the other axes: each list in the order of its index over ``axes``
+    composed major to minor as listed (``piece_index``'s order for a dim
+    split over them); ``groups(mesh, "data", "model")`` is the whole grid
+    of a (data, model) mesh. An axis the mesh lacks counts one position
+    (none at all: one position a group)."""
+    axes = tuple(a for a in axes if a in mesh.shape)
+    if not axes:
         return [[r] for r in range(mesh.size)]
-    out: Dict[tuple, List[int]] = {}
+    shape = mesh.shape
+    out: Dict[tuple, List[Tuple[int, int]]] = {}
     for r in range(mesh.size):
         c = mesh.coords(r)
-        key = tuple(v for k, v in c.items() if k != axis)
-        out.setdefault(key, []).append(r)
-    return list(out.values())
+        key = tuple(v for k, v in c.items() if k not in axes)
+        i = 0
+        for a in axes:
+            i = i * shape[a] + c[a]
+        out.setdefault(key, []).append((i, r))
+    return [[r for _, r in sorted(m)] for m in out.values()]
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -281,11 +385,12 @@ class _GatherToRoot(torch.autograd.Function):
 
 
 def all_reduce(xs: Sequence[torch.Tensor], mesh: Mesh,
-               axis: str) -> List[torch.Tensor]:
+               axis: Axes) -> List[torch.Tensor]:
     """Each position's tensor replaced by the sum over its group along
-    ``axis``, added in group order on the group's first device."""
+    ``axis`` (one axis or a tuple), added in group order on the group's
+    first device."""
     out = list(xs)
-    for members in groups(mesh, axis):
+    for members in groups(mesh, *_axes_tuple(axis)):
         if len(members) == 1:
             continue
         acc = _ReduceToRoot.apply(members, *[xs[r] for r in members])
@@ -296,10 +401,11 @@ def all_reduce(xs: Sequence[torch.Tensor], mesh: Mesh,
 
 
 def all_reduce_max(xs: Sequence[torch.Tensor], mesh: Mesh,
-                   axis: str) -> List[torch.Tensor]:
-    """The elementwise max over each group along ``axis``; detached."""
+                   axis: Axes) -> List[torch.Tensor]:
+    """The elementwise max over each group along ``axis`` (one axis or a
+    tuple); detached."""
     out = [x.detach() for x in xs]
-    for members in groups(mesh, axis):
+    for members in groups(mesh, *_axes_tuple(axis)):
         if len(members) == 1:
             continue
         root = out[members[0]].device
@@ -312,12 +418,12 @@ def all_reduce_max(xs: Sequence[torch.Tensor], mesh: Mesh,
     return out
 
 
-def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axis: Axes,
                dim: int) -> List[torch.Tensor]:
     """Each position's tensor replaced by its group's pieces along
-    ``axis`` joined on ``dim`` in group order."""
+    ``axis`` (one axis or a tuple) joined on ``dim`` in group order."""
     out = list(xs)
-    for members in groups(mesh, axis):
+    for members in groups(mesh, *_axes_tuple(axis)):
         if len(members) == 1:
             continue
         full = _GatherToRoot.apply(dim, members, *[xs[r] for r in members])
@@ -329,18 +435,21 @@ def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
 
 def gathered_over(x: Placed, *axes: str) -> List[torch.Tensor]:
     """Each position's piece with the dims that any of ``axes`` shards
-    gathered (an FSDP weight just before its use), dim by dim;
-    differentiable."""
+    gathered (an FSDP weight just before its use), dim by dim; a dim split
+    over several mesh axes gathers over those of ``axes`` together, in the
+    order ``piece_index`` composes them, which must be all of them or the
+    minor ones (whose pieces lie side by side); differentiable."""
     xs = list(x.pieces)
     for d, part in enumerate(x.spec):
         names = _axes_of(part)
-        for axis in axes:
-            if axis in names:
-                if len(names) > 1:
-                    raise NotImplementedError(
-                        f"a dim sharded over {names} together: only one "
-                        f"mesh axis a dim is gathered")
-                xs = all_gather(xs, mesh=x.mesh, axis=axis, dim=d)
+        hit = tuple(a for a in names if a in axes)
+        if not hit:
+            continue
+        if hit != names[len(names) - len(hit):]:
+            raise NotImplementedError(
+                f"a dim sharded over {names}: gathering {hit} alone would "
+                f"join pieces that do not lie side by side")
+        xs = all_gather(xs, mesh=x.mesh, axis=hit, dim=d)
     return xs
 
 

@@ -13,14 +13,15 @@ device time (kernels by name on CUDA; aten operators by self CPU time with
     PYTHONPATH=src python -m repro_torch.launch.inspect_hlo --arch llama3-8b \\
         --shape decode_32k --periods 1 [--top 20] [--device cpu]
 
-It runs on CUDA unless ``--device cpu``. ``--mesh D,M`` runs a train
-cell's step, of any family, on a ``(data, model)`` mesh
-(``launch.mesh.make_mesh``: CUDA needs ``D·M`` cards unless ``--device``
-lists one device a shard, e.g. ``cuda:0,cuda:0,cuda:0,cuda:0``;
-``--device cpu`` puts every shard on the CPU) and prints the top
-operations of each device, then the bytes each position's collectives
-counted and the roofline's collective term they give. Prefill and decode
-cells run on one device (their mesh path is ROADMAP.md §1 item 3).
+It runs on CUDA unless ``--device cpu``. ``--mesh D,M`` runs the cell's
+step on a ``(data, model)`` mesh (``launch.mesh.make_mesh``: CUDA needs
+``D·M`` cards unless ``--device`` lists one device a shard, e.g.
+``cuda:0,cuda:0,cuda:0,cuda:0``; ``--device cpu`` puts every shard on
+the CPU): a train cell of any family, a prefill cell under
+``PREFILL_RULES`` or a decode cell under ``DECODE_RULES`` of a dense
+decoder family (the others raise, naming ROADMAP.md §1 item 3). It
+prints the top operations of each device, then the bytes each position's
+collectives counted and the roofline's collective term they give.
 """
 from __future__ import annotations
 
@@ -33,8 +34,12 @@ import torch
 
 def concrete_args(bundle, cfg, shape, device, seed: int = 0, mesh=None):
     """The step's arguments on ``device``: weights drawn from a seeded
-    generator, zero moments and caches, ``make_demo_inputs``'s batch; a
-    train state laid over ``mesh`` when one is given."""
+    generator, zero moments and caches, ``make_demo_inputs``'s batch; with
+    ``mesh``, a train state, or the weights and a decode's caches, laid
+    over it under the cell's rules (each weight placed as it is drawn,
+    each cache piece made in place)."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import rules_for_shape
     from repro_torch.models.api import make_demo_inputs
     from repro_torch.models.params import init_lm_params
     from repro_torch.optimizer import adamw
@@ -42,8 +47,19 @@ def concrete_args(bundle, cfg, shape, device, seed: int = 0, mesh=None):
     from repro_torch.training.step import TrainState
     from repro_torch.tree import tree_map
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_lm_params(cfg, gen, device)
     batch = make_demo_inputs(cfg, shape, device=device)
+    if mesh is not None and bundle.kind != "train":
+        rules = rules_for_shape(bundle.kind)
+        params = init_lm_params(cfg, gen, device, place=lambda w, axes: (
+            spmd.place(w, axes, mesh, rules)))
+        if bundle.kind == "prefill":
+            return [params, batch]
+        caches = tree_map(
+            lambda s, a: spmd.zeros(s.shape, s.dtype, a[0], mesh, rules),
+            bundle.args_structs[1], bundle.args_axes[1],
+            is_leaf=lambda x: isinstance(x, TensorSpec))
+        return [params, caches, batch]
+    params = init_lm_params(cfg, gen, device)
     if bundle.kind == "train":
         opt = adamw.AdamWConfig(
             moments_dtype=bundle.static_meta["moments_dtype"])
@@ -88,7 +104,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="none",
-                    help="'none' (one device) or 'D,M': a train cell on a "
+                    help="'none' (one device) or 'D,M': the cell on a "
                          "(data, model) mesh")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--periods", type=int, default=1)
@@ -114,7 +130,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.dryrun import depth_variant, period_len
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import make_step_bundle
-    from repro_torch.models.lm import LM
+    from repro_torch.models.lm import LM, check_mesh_support
     from repro_torch.optimizer.adamw import AdamWConfig
     from repro_torch.training.step import make_train_step
 
@@ -129,22 +145,25 @@ def main(argv=None) -> int:
                               **opts)
     mesh, fn = None, bundle.fn
     if mesh_shape is not None:
-        if bundle.kind != "train":
-            raise NotImplementedError(
-                f"--mesh runs train cells; {args.shape} is a "
-                f"{bundle.kind} cell, whose mesh path waits for ROADMAP.md "
-                f"§1 item 3")
         dev = (args.device.split(",") if args.device and "," in args.device
                else args.device)
         mesh = make_mesh(mesh_shape, ("data", "model")[:len(mesh_shape)],
                          dev)
         device = mesh.devices[0]
         meta = bundle.static_meta
-        fn = make_train_step(
-            LM(var, remat_group=meta["remat_group"]),
-            AdamWConfig(moments_dtype=meta["moments_dtype"]),
-            microbatches=meta["microbatches"],
-            accum_dtype=meta["accum_dtype"], mesh=mesh)
+        lm = LM(var, remat_group=meta.get("remat_group", 1))
+        check_mesh_support(mesh, bundle.kind, var)
+        if bundle.kind == "train":
+            fn = make_train_step(
+                lm, AdamWConfig(moments_dtype=meta["moments_dtype"]),
+                microbatches=meta["microbatches"],
+                accum_dtype=meta["accum_dtype"], mesh=mesh)
+        elif bundle.kind == "prefill":
+            def fn(params, batch):
+                return lm.prefill(params, batch, meta["capacity"], mesh=mesh)
+        else:
+            def fn(params, caches, batch):
+                return lm.decode_step(params, caches, batch, mesh=mesh)
     else:
         device = resolve_device(args.device)
     step_args = concrete_args(bundle, var, shape, device, mesh=mesh)

@@ -22,14 +22,21 @@ with ``jax.value_and_grad``; the reference has no backward kernel.
 ``decode_attention`` and ``update_cache`` are the reference's jnp functions
 (``:113-146``), which run outside any Pallas kernel; plain PyTorch is their
 counterpart. Scores and the value product accumulate in fp32, as the
-reference's ``preferred_element_type`` asks.
+reference's ``preferred_element_type`` asks. ``decode_attention`` is the
+one-piece case of ``decode_attention_partial`` (a piece of the cache's
+sequence at its absolute offset) and ``combine_decode_attention``, which
+merge the pieces' softmax statistics: over a list on one device, or over
+a mesh's positions (``distributed/spmd.py``), where the reference's
+``kv_seq`` sharding of the scores lets GSPMD distribute the softmax.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import spmd
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 
 NEG_INF = -1e30
@@ -140,21 +147,80 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ints or (B,) — cache positions in [valid_from, valid_to) attend.
     """
     B, Hq, D = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    part = decode_attention_partial(q, k_cache, v_cache, 0, valid_from,
+                                    valid_to, softmax_scale=softmax_scale)
+    out = combine_decode_attention([part])[0]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+Partial = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def decode_attention_partial(q: torch.Tensor, k_piece: torch.Tensor,
+                             v_piece: torch.Tensor, offset: int,
+                             valid_from: Union[int, torch.Tensor],
+                             valid_to: Union[int, torch.Tensor], *,
+                             softmax_scale: Optional[float] = None
+                             ) -> Partial:
+    """One-token attention over a piece of the cache: k_piece/v_piece (B,
+    S_piece, Hkv, D) hold cache positions [offset, offset + S_piece), masked
+    by the absolute bounds [valid_from, valid_to). Returns, in fp32,
+    (m, l, o): the max score and the sum of exp(score - m), each (B, Hkv,
+    G, 1), and the piece's output o (B, Hkv, G, D), the product of its
+    weights normalised by its own l (cast to the cache's dtype as the
+    reference casts them) with its values. A piece with no valid slot gives
+    m = NEG_INF, l = 0, o = 0."""
+    B, Hq, D = q.shape
+    S, Hkv = k_piece.shape[1], k_piece.shape[2]
     group = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     qg = (q * scale).reshape(B, Hkv, group, D)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float())
-    pos = torch.arange(S, device=q.device)[None]           # (1, S)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_piece.float())
+    pos = offset + torch.arange(S, device=q.device)[None]     # (1, S)
     mask = ((pos >= _bound(valid_from, q))
-            & (pos < _bound(valid_to, q)))                  # (B or 1, S)
-    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+            & (pos < _bound(valid_to, q)))[:, None, None, :]
+    s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    # m is NEG_INF only where no slot is valid: there the clamp makes every
+    # exp 0; elsewhere it leaves m as it is
+    p = torch.exp(s - m.clamp(min=NEG_INF / 2))
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd",
-                       (p / l).to(v_cache.dtype).float(), v_cache.float())
-    return out.reshape(B, Hq, D).to(q.dtype)
+    w = (p / l.clamp(min=_TINY)).to(v_piece.dtype).float()
+    o = torch.einsum("bkgs,bskd->bkgd", w, v_piece.float())
+    return m, l, o
+
+
+_TINY = 1e-30
+
+
+def combine_decode_attention(parts: Sequence[Partial], mesh=None,
+                             axes=()) -> List[torch.Tensor]:
+    """The attention output (B, Hkv, G, D) in fp32 from pieces' (m, l, o):
+    the global max, each piece's weight l · exp(m - max) over their sum,
+    and the weighted sum of the pieces' outputs. With ``mesh``, ``parts``
+    holds each position's piece and the max and sums are all-reduced over
+    its group along ``axes`` (``spmd``), one result a position; without,
+    they merge in list order on one device, the same result for each. One
+    piece gives its own o (its weight is l / l = 1)."""
+    if mesh is None and len(parts) == 1:
+        return [parts[0][2]]
+    if mesh is None:
+        def red_max(xs):
+            return [functools.reduce(torch.maximum, xs)] * len(xs)
+
+        def red_sum(xs):
+            return [functools.reduce(torch.add, xs)] * len(xs)
+    else:
+        def red_max(xs):
+            return spmd.all_reduce_max(xs, mesh, axes)
+
+        def red_sum(xs):
+            return spmd.all_reduce(xs, mesh, axes)
+    top = red_max([m for m, _, _ in parts])
+    ws = [l * torch.exp(m - t) for (m, l, _), t in zip(parts, top)]
+    tot = red_sum(ws)
+    return red_sum([(w / t.clamp(min=_TINY)) * o
+                    for w, t, (_, _, o) in zip(ws, tot, parts)])
 
 
 def update_cache(cache: torch.Tensor, new: torch.Tensor,

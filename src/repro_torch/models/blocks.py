@@ -20,6 +20,14 @@ combine are all-reduced over "model" (not where the heads, the channels,
 the ``d_ff`` or the experts stay whole on every shard: there every shard
 computes the whole). The SSM's output norm spans the whole ``d_in``: its
 sum of squares is all-reduced over "model" before the division.
+
+``apply_layer_shards_prefill`` and ``apply_layer_shards_decode`` run an
+attention layer with a dense FFN over the mesh in the two serving cells:
+the prefill as ``apply_layer_shards``, returning its k/v as
+``spmd.Placed`` caches (the kv heads gathered over "model", each
+position's slots kept); the decode weight-stationary, on the residual
+stream split over "data" along d, its softmax merged over the caches'
+pieces across the grid.
 """
 from __future__ import annotations
 
@@ -79,6 +87,13 @@ def window_cache_size(cfg: ModelConfig, spec: LayerSpec, capacity: int) -> int:
     return w if 0 < w <= capacity else 0
 
 
+def _is_ring(cfg: ModelConfig, spec: LayerSpec, cache_len_dim: int) -> bool:
+    """Whether a layer's cache of ``cache_len_dim`` slots is a ring of its
+    window (``window_cache_size``)."""
+    w = 0 if spec.is_global else cfg.attn.sliding_window
+    return bool(w) and cache_len_dim == w
+
+
 def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       capacity: int, src_len: int = 0,
                       dtype: str = "bfloat16") -> Dict[str, ArraySpec]:
@@ -113,12 +128,27 @@ def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return out
 
 
-def _left_fit(x: torch.Tensor, cap: int) -> torch.Tensor:
-    """Left-align x (B, S, ...) into a new tensor of capacity cap (zero
-    padded or truncated at the end)."""
-    out = x.new_zeros((x.shape[0], cap) + tuple(x.shape[2:]))
-    keep = min(cap, x.shape[1])
-    out[:, :keep] = x[:, :keep]
+def _fit_slots(x: torch.Tensor, cap: int, ring: bool, s0: int = 0,
+               n: Optional[int] = None) -> torch.Tensor:
+    """Slots [s0, s0 + n) (all ``cap`` by default) of a cache of ``cap``
+    slots laid out from x (B, S, ...) in a new tensor: left-aligned, zero
+    padded or truncated at the end; or a ring, the last min(cap, S) steps
+    each at slot p % cap of its absolute position p. A ring's steps lie in
+    at most two runs of slots, each copied as a slice."""
+    n = cap if n is None else n
+    S = x.shape[1]
+    out = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    if ring:
+        a = S - min(cap, S)
+        first = cap - a % cap            # steps before the ring wraps
+        runs = ((a, a % cap, min(first, S - a)),
+                (a + first, 0, max(0, S - a - first)))
+    else:
+        runs = ((0, 0, min(S, cap)),)
+    for p0, t0, m in runs:
+        lo, hi = max(t0, s0), min(t0 + m, s0 + n)
+        if lo < hi:
+            out[:, lo - s0:hi - s0] = x[:, p0 + lo - t0:p0 + hi - t0]
     return out
 
 
@@ -129,17 +159,6 @@ def _right_fit(x: torch.Tensor, cap: int) -> torch.Tensor:
     keep = min(cap, x.shape[1])
     out[:, cap - keep:] = x[:, x.shape[1] - keep:]
     return out
-
-
-def _ring_fit(x: torch.Tensor, w: int) -> torch.Tensor:
-    """Scatter the last min(w, S) steps of x (B, S, ...) into ring slots
-    (absolute position p lands at slot p % w)."""
-    S = x.shape[1]
-    keep = min(w, S)
-    ring = x.new_zeros((x.shape[0], w) + tuple(x.shape[2:]))
-    slots = torch.arange(S - keep, S, device=x.device) % w
-    ring[:, slots] = x[:, S - keep:]
-    return ring
 
 
 # ---------------------------------------------------------------------------
@@ -159,15 +178,19 @@ def _theta(cfg: ModelConfig, spec: LayerSpec) -> float:
     return cfg.rope_theta
 
 
-def _attn_seq(cfg, spec, p, x, positions, window):
-    """Full-sequence attention (prefill). Returns out, (k, v)."""
+def _attn_seq(cfg, spec, p, x, positions, window, kv_pick=None):
+    """Full-sequence attention (prefill). ``kv_pick`` (``_kv_pick``)
+    chooses the kv heads the q heads read where ``p`` holds more. Returns
+    out, (k, v) of every kv head ``p`` holds."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     q, k, v = _qkv(h, p)
     theta = _theta(cfg, spec)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     v = v.contiguous()          # the flash kernel takes contiguous q/k/v
-    out = attn_lib.flash_attention(q, k, v, causal=spec.is_causal,
+    ks, vs = ((k, v) if kv_pick is None else
+              (_pick_heads(k, kv_pick, 2), _pick_heads(v, kv_pick, 2)))
+    out = attn_lib.flash_attention(q, ks, vs, causal=spec.is_causal,
                                    window=window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
@@ -252,15 +275,12 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         out, (k, v) = _attn_seq(cfg, spec, p, x, positions, window)
         x = x + out
         if want_cache:
+            # a window cache is a RING, slot(p) = p % W (a decode update
+            # is a one-token write, not a shift); a full cache is
+            # left-aligned, and decode appends at cache_len
             w = window_cache_size(cfg, spec, capacity)
-            if w:
-                # window cache: RING buffer — slot(p) = p % W (a decode
-                # update is a one-token write, not a shift)
-                cache["k"], cache["v"] = _ring_fit(k, w), _ring_fit(v, w)
-            else:
-                # full cache: left-aligned, decode appends at cache_len
-                cache["k"] = _left_fit(k, capacity)
-                cache["v"] = _left_fit(v, capacity)
+            cache["k"] = _fit_slots(k, w or capacity, bool(w))
+            cache["v"] = _fit_slots(v, w or capacity, bool(w))
     else:
         y, z, c = _ssm_scan(cfg, p, x, want_cache)
         if want_cache:
@@ -294,9 +314,8 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                          device=x.device)
         q = apply_rope(q, pos, theta)
         k = apply_rope(k, pos, theta)
-        window = 0 if spec.is_global else cfg.attn.sliding_window
         cap = cache["k"].shape[1]
-        if window and cap == window:  # ring-buffer window cache
+        if _is_ring(cfg, spec, cap):
             slot = int(cache_len) % cap
             vt = min(int(cache_len) + 1, cap)
         else:
@@ -346,6 +365,24 @@ def _kv_heads_of(first: int, n: int, group: int):
     return [(first + t) // group for t in range(n)]
 
 
+def _kv_pick(cfg: ModelConfig, mesh, r: int, n_q: int, n_kv: int):
+    """Where position ``r`` holds ``n_q`` of the q heads (a split over
+    "model") but all ``n_kv`` kv heads, the kv heads its q heads read
+    (``_kv_heads_of``); else None."""
+    if n_q == cfg.num_heads or n_kv != cfg.num_kv_heads:
+        return None
+    return _kv_heads_of(mesh.axis_index(r, "model") * n_q, n_q,
+                        cfg.num_heads // max(cfg.num_kv_heads, 1))
+
+
+def _pick_heads(t: torch.Tensor, sel, dim: int) -> torch.Tensor:
+    """The heads ``sel`` (a slice or a list) of ``t`` along ``dim``, as a
+    contiguous tensor."""
+    if isinstance(sel, slice):
+        return t[(slice(None),) * dim + (sel,)].contiguous()
+    return t.index_select(dim, torch.tensor(sel, device=t.device))
+
+
 # an SSM layer's leaves over its d_in channels; its heads' are w_dt,
 # dt_bias, A_log and D
 _SSM_CHANNELS = ("w_z", "w_x", "conv_x", "norm_y", "out_proj")
@@ -361,14 +398,16 @@ def _ssm_cut_in_heads(p: Dict) -> bool:
     return split(p["w_x"]) and not split(p["w_dt"])
 
 
-def shard_weights(cfg: ModelConfig, p: Dict, mesh) -> list:
+def shard_weights(cfg: ModelConfig, p: Dict, mesh,
+                  pick_kv: bool = True) -> list:
     """Each position's weights of one layer from its ``spmd.Placed``
     leaves (nested ``moe`` dict included): the dims sharded over "data"
     (FSDP) gathered; where the q heads of self- or cross-attention split
     over "model" and their kv heads do not, the kv heads that position's
-    q heads read; and where an SSM layer's channels split over "model"
-    but its heads do not, its channel leaves gathered over "model" too,
-    so every position runs the whole mixer, as GSPMD does.
+    q heads read (all of them with ``pick_kv=False``, for a prefill that
+    caches every kv head); and where an SSM layer's channels split over
+    "model" but its heads do not, its channel leaves gathered over "model"
+    too, so every position runs the whole mixer, as GSPMD does.
     Differentiable: the gathers' gradients reduce-scatter back."""
     whole = (set(_SSM_CHANNELS) if "w_x" in p and _ssm_cut_in_heads(p)
              else set())
@@ -384,16 +423,14 @@ def shard_weights(cfg: ModelConfig, p: Dict, mesh) -> list:
         return out
 
     ws = walk(p)
-    group = cfg.num_heads // max(cfg.num_kv_heads, 1)
     for pre in ("", "c"):
-        if pre + "wq" not in p:
+        if not pick_kv or pre + "wq" not in p:
             continue
         for r, w in enumerate(ws):
-            n = w[pre + "wq"].shape[1]
-            if n == cfg.num_heads or w[pre + "wk"].shape[1] != \
-                    cfg.num_kv_heads:
+            sel = _kv_pick(cfg, mesh, r, w[pre + "wq"].shape[1],
+                           w[pre + "wk"].shape[1])
+            if sel is None:
                 continue
-            sel = _kv_heads_of(mesh.axis_index(r, "model") * n, n, group)
             for k in (pre + "wk", pre + "wv"):
                 w[k] = (w[k][:, sel] if isinstance(sel, slice) else
                         w[k].index_select(1, torch.tensor(
@@ -449,6 +486,13 @@ def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
         if ws[0]["cwo"].shape[0] != cfg.num_heads:
             outs = spmd.all_reduce(outs, mesh, "model")
         xs = [x + o for x, o in zip(xs, outs)]
+    return _ffn_shards(cfg, spec, mesh, ws, xs)
+
+
+def _ffn_shards(cfg: ModelConfig, spec: LayerSpec, mesh, ws: list,
+                xs: list) -> list:
+    """The FFN residual over the mesh: each position's ``d_ff`` columns or
+    experts, the partials all-reduced over "model"."""
     if spec.ffn == "none":
         return xs
     hs = [rms_norm(x, w["ln2"], cfg.rms_eps) for w, x in zip(ws, xs)]
@@ -459,4 +503,189 @@ def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
               for w, h in zip(ws, hs)]
         if ws[0]["w_gate"].shape[1] != cfg.d_ff:
             fs = spmd.all_reduce(fs, mesh, "model")
+    return [x + f for x, f in zip(xs, fs)]
+
+
+# ---------------------------------------------------------------------------
+# Prefill and decode on a mesh
+# ---------------------------------------------------------------------------
+
+def _placed_cache(ts: list, aspec: ArraySpec, mesh, rules,
+                  ring: bool) -> spmd.Placed:
+    """A prefill's k or v over the mesh, ``ts[r]`` (b, S, kv heads, D)
+    position r's data shard with the kv heads it computed, as the cache
+    ``aspec`` laid out under ``rules``: where the cache keeps every kv
+    head and the positions computed a share, the shares are gathered over
+    "model"; each position keeps its piece's slots and heads."""
+    from repro_torch.distributed.sharding import pspec_for
+    shape = tuple(aspec.shape)
+    spec = pspec_for(aspec.logical_axes, mesh, rules, shape)
+    whole = spmd.piece_ranges(spec, shape, mesh, 0)[2][1] == shape[2]
+    if whole and ts[0].shape[2] != shape[2]:
+        ts = spmd.all_gather(ts, mesh, "model", dim=2)
+    pieces = []
+    for r, t in enumerate(ts):
+        (_, nb), (s0, ns), (h0, nh), _ = spmd.piece_ranges(spec, shape,
+                                                            mesh, r)
+        if t.shape[0] != nb:
+            raise ValueError(f"position {r} computed {t.shape[0]} rows of "
+                             f"a cache piece of {nb}")
+        if t.shape[2] != nh:
+            t = t.narrow(2, h0, nh)
+        pieces.append(_fit_slots(t, shape[1], ring, s0, ns))
+    return spmd.Placed(pieces, spec, shape, mesh, aspec.logical_axes)
+
+
+def apply_layer_shards_prefill(cfg: ModelConfig, spec: LayerSpec, mesh,
+                               ws: list, xs: list, positions: list,
+                               cache_specs: Dict[str, ArraySpec], rules
+                               ) -> Tuple[list, Dict[str, spmd.Placed]]:
+    """A prefill's attention layer with a dense FFN over the mesh:
+    ``apply_layer_shards`` (each position runs flash on its q heads) that
+    also returns the layer's cache as ``spmd.Placed`` k and v, laid out by
+    ``cache_specs`` (``layer_cache_specs``) under ``rules``
+    (``PREFILL_RULES``: the batch over "data", ``kv_seq`` over "model").
+    ``ws`` from ``shard_weights(..., pick_kv=False)``: each position
+    computes the k/v of every kv head it holds."""
+    window = 0 if spec.is_global else cfg.attn.sliding_window
+    outs, kv = [], {"k": [], "v": []}
+    for r, (w, x, pos) in enumerate(zip(ws, xs, positions)):
+        pick = _kv_pick(cfg, mesh, r, w["wq"].shape[1], w["wk"].shape[1])
+        o, (k, v) = _attn_seq(cfg, spec, w, x, pos, window, pick)
+        outs.append(o)
+        kv["k"].append(k)
+        kv["v"].append(v)
+    if ws[0]["wo"].shape[0] != cfg.num_heads:
+        outs = spmd.all_reduce(outs, mesh, "model")
+    xs = [x + o for x, o in zip(xs, outs)]
+    ring = _is_ring(cfg, spec, cache_specs["k"].shape[1])
+    cache = {name: _placed_cache(kv[name], cache_specs[name], mesh, rules,
+                                 ring) for name in ("k", "v")}
+    return _ffn_shards(cfg, spec, mesh, ws, xs), cache
+
+
+def norm_pieces(cfg: ModelConfig, mesh, xs: list, scale: spmd.Placed
+                ) -> list:
+    """``rms_norm`` of a residual stream (B, d) split over "data" along d
+    (``xs[r]`` position r's piece): each position's fp32 sum of squares
+    all-reduced over "data", then its piece of the scale."""
+    d = cfg.d_model
+    if xs[0].shape[-1] == d:
+        return [rms_norm(x, s, cfg.rms_eps)
+                for x, s in zip(xs, scale.pieces)]
+    sq = spmd.all_reduce([x.float().square().sum(dim=-1, keepdim=True)
+                          for x in xs], mesh, "data")
+    out = []
+    for r, (x, s) in enumerate(zip(xs, sq)):
+        n = x.shape[-1]
+        w = scale.pieces[r].narrow(0, mesh.axis_index(r, "data") * n, n)
+        y = x.float() * torch.rsqrt(s / d + cfg.rms_eps)
+        out.append((y * (1.0 + w.float())).to(x.dtype))
+    return out
+
+
+def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list, ks: list,
+                        vs: list, cache: Dict[str, spmd.Placed], slot: int,
+                        valid_to: int) -> list:
+    """One-token attention over a cache laid out on the mesh: each
+    position writes the new token's k/v (``ks[r]``, every kv head) where
+    its piece holds ``slot``, and attends its piece with the q heads
+    (``qs[r]``, all of them) that read its kv heads
+    (``decode_attention_partial`` at the piece's offset); the pieces merge
+    over the whole grid (``combine_decode_attention``). Where the piece is
+    not the whole batch and every kv head, or another position holds it
+    first, its statistics stand in a whole-size tensor at their place, or
+    not at all (every piece counted once). Returns (B, Hq, D) a
+    position."""
+    kc, vc = cache["k"], cache["v"]
+    B, _, Hkv, D = kc.shape
+    G = cfg.num_heads // Hkv
+
+    def no_slot(device):
+        f32 = dict(dtype=torch.float32, device=device)
+        return (torch.full((B, Hkv, G, 1), attn_lib.NEG_INF, **f32),
+                torch.zeros((B, Hkv, G, 1), **f32),
+                torch.zeros((B, Hkv, G, D), **f32))
+
+    parts = []
+    for r in range(mesh.size):
+        (b0, nb), (s0, ns), (h0, nh), _ = kc.ranges(r)
+        kp, vp = kc.pieces[r], vc.pieces[r]
+        if s0 <= slot < s0 + ns:
+            kp[:, slot - s0] = ks[r][b0:b0 + nb, h0:h0 + nh].to(kp.dtype)
+            vp[:, slot - s0] = vs[r][b0:b0 + nb, h0:h0 + nh].to(vp.dtype)
+        if not kc.first_holder(r):
+            parts.append(no_slot(kp.device))
+            continue
+        q = qs[r][b0:b0 + nb, h0 * G:(h0 + nh) * G]
+        part = attn_lib.decode_attention_partial(q, kp, vp, s0, 0, valid_to)
+        if (nb, nh) != (B, Hkv):
+            full = no_slot(kp.device)
+            for whole, piece in zip(full, part):
+                whole[b0:b0 + nb, h0:h0 + nh] = piece
+            part = full
+        parts.append(part)
+    outs = attn_lib.combine_decode_attention(parts, mesh, mesh.axis_names)
+    return [o.reshape(B, cfg.num_heads, D).to(q.dtype)
+            for o, q in zip(outs, qs)]
+
+
+def apply_layer_shards_decode(cfg: ModelConfig, spec: LayerSpec, mesh,
+                              p: Dict, xs: list,
+                              cache: Dict[str, spmd.Placed], cache_len: int
+                              ) -> list:
+    """One decode step of an attention layer with a dense FFN over the
+    mesh, weight-stationary (``DECODE_RULES``): ``p`` the layer's
+    ``spmd.Placed`` weights, used as their pieces, never gathered; ``xs[r]``
+    position r's piece (B, d / D) of the residual stream, split over
+    "data" along d and whole in batch; ``cache`` its k/v over the mesh,
+    updated in place. Each position's q/k/v are its d piece times its
+    ``fsdp`` rows of ``wq``/``wk``/``wv``, partial sums all-reduced over
+    "data"; q and the new k/v are gathered over "model" to every head;
+    attention runs over the cache's pieces (``_decode_attn_pieces``);
+    ``wo`` and ``w_down`` give each position's d piece from its heads or
+    ``d_ff`` columns, all-reduced over "model", ``w_gate``/``w_up``
+    partial sums over "data". Returns the new residual pieces."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    split = xs[0].shape[-1] != cfg.d_model
+
+    def contract(hs, name, eq):
+        parts = [torch.einsum(eq, h, w) for h, w in zip(hs, p[name].pieces)]
+        return spmd.all_reduce(parts, mesh, "data") if split else parts
+
+    hs = norm_pieces(cfg, mesh, xs, p["ln1"])
+    q, k, v = (contract(hs, n, "bd,dhk->bhk") for n in ("wq", "wk", "wv"))
+    theta = _theta(cfg, spec)
+    B = xs[0].shape[0]
+    pos = [torch.full((B, 1), int(cache_len), dtype=torch.long, device=d)
+           for d in mesh.devices]
+    q = [apply_rope(t[:, None], ps, theta)[:, 0] for t, ps in zip(q, pos)]
+    k = [apply_rope(t[:, None], ps, theta)[:, 0] for t, ps in zip(k, pos)]
+    if q[0].shape[1] != H:
+        q = spmd.all_gather(q, mesh, "model", dim=1)
+    if k[0].shape[1] != Hkv:
+        k = spmd.all_gather(k, mesh, "model", dim=1)
+        v = spmd.all_gather(v, mesh, "model", dim=1)
+    cap = cache["k"].shape[1]
+    if _is_ring(cfg, spec, cap):
+        slot, vt = int(cache_len) % cap, min(int(cache_len) + 1, cap)
+    else:
+        slot, vt = int(cache_len), int(cache_len) + 1
+    out = _decode_attn_pieces(cfg, mesh, q, k, v, cache, slot, vt)
+    wo = p["wo"].pieces
+    n = wo[0].shape[0]
+    outs = [torch.einsum("bhk,hkd->bd", o.narrow(
+        1, (mesh.axis_index(r, "model") * n) if n != H else 0, n), w)
+        for r, (o, w) in enumerate(zip(out, wo))]
+    if n != H:
+        outs = spmd.all_reduce(outs, mesh, "model")
+    xs = [x + o for x, o in zip(xs, outs)]
+    hs = norm_pieces(cfg, mesh, xs, p["ln2"])
+    g = contract(hs, "w_gate", "bd,df->bf")
+    u = contract(hs, "w_up", "bd,df->bf")
+    acts = [torch.nn.functional.silu(a.float()).to(h.dtype) * b
+            for a, b, h in zip(g, u, hs)]
+    fs = [a @ w for a, w in zip(acts, p["w_down"].pieces)]
+    if p["w_down"].pieces[0].shape[0] != cfg.d_ff:
+        fs = spmd.all_reduce(fs, mesh, "model")
     return [x + f for x, f in zip(xs, fs)]

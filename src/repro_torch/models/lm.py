@@ -26,7 +26,16 @@ rematerialize through ``_Remat``, whose backward recomputes on one
 thread, where ``torch.utils.checkpoint``'s hooks would run on every card's
 autograd thread at once; the encoder runs without remat, as the
 reference's, and each position's copy of its memory feeds that position's
-cross-attention heads). ``param_structs``, ``param_axes``
+cross-attention heads). ``prefill(..., mesh=)`` and
+``decode_step(..., mesh=)`` run the dense decoder families (attention
+layers with a dense FFN) over such a mesh: the prefill under
+``PREFILL_RULES`` (each data row its share of the batch, flash on each
+position's q heads, the caches' sequence over "model"), the decode under
+``DECODE_RULES`` (weight-stationary: the residual stream split over
+"data" along d and whole in batch, the caches' sequence over the whole
+grid, the softmax merged across it); ``caches_for_decode`` moves a
+prefill's caches to the decode layout between the two.
+``param_structs``, ``param_axes``
 and ``cache_specs`` describe the weights and caches, with their logical
 axes, without allocating them (the dry-run's input). The reference's
 ``scan_unroll`` served its dry-run's cost extrapolation over ``lax.scan``;
@@ -44,6 +53,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import (DECODE_RULES, PREFILL_RULES,
+                                              pspec_for)
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LayerSpec, make_layer_spec
 from repro_torch.models.common import ArraySpec, dtype_of, rms_norm
@@ -172,11 +183,16 @@ class LM:
         return x
 
     @torch.no_grad()
-    def prefill(self, params, batch: Dict[str, torch.Tensor], capacity: int):
+    def prefill(self, params, batch: Dict[str, torch.Tensor], capacity: int,
+                mesh=None):
         """batch: tokens (B, S) [+ embeds (B, F, e) or src_embeds (B, F,
         e)]. Positions (and so the decode's ``cache_len``) count a
         frontend's F embeddings first. Returns (last_logits (B, V),
-        caches)."""
+        caches). With ``mesh`` (a dense decoder config; ``params`` placed
+        by ``spmd``), the logits whole on every position as a list, and
+        caches of ``spmd.Placed`` k and v under ``PREFILL_RULES``."""
+        if mesh is not None:
+            return self._prefill_mesh(params, batch, capacity, mesh)
         cfg = self.cfg
         memory = (self._encode(params, batch["src_embeds"])
                   if self.enc_program else None)
@@ -192,9 +208,14 @@ class LM:
         return self._logits(params, x[:, -1]), caches
 
     @torch.no_grad()
-    def decode_step(self, params, caches, batch):
+    def decode_step(self, params, caches, batch, mesh=None):
         """batch: token (B,), cache_len int. Returns (logits (B, V), caches);
-        the caches are updated in place."""
+        the caches are updated in place. With ``mesh`` (a dense decoder
+        config; ``params`` placed by ``spmd``, the caches ``spmd.Placed``,
+        best under ``DECODE_RULES``: ``caches_for_decode``), the logits
+        whole on every position as a list."""
+        if mesh is not None:
+            return self._decode_mesh(params, caches, batch, mesh)
         x = params["head"]["embed"][batch["token"]]          # (B, d)
         new_caches = []
         for spec, p, c in zip(self.specs, params["layers"], caches,
@@ -320,19 +341,8 @@ class LM:
             [rows("src_embeds", r) for r in range(mesh.size)], mesh)
             if self.enc_program else None)
         emb = spmd.gathered_over(head["embed"], "data")
-        xs = []
-        for r in range(mesh.size):
-            tok = rows("tokens", r).long()
-            off, n = vocab_cols(r, emb[r].shape[0])
-            if n == V:
-                xs.append(emb[r][tok])
-                continue
-            idx = tok - off
-            inside = (idx >= 0) & (idx < n)
-            xs.append(emb[r][idx.clamp(0, n - 1)]
-                      * inside[..., None].to(emb[r].dtype))
-        if emb[0].shape[0] != V:
-            xs = spmd.all_reduce(xs, mesh, "model")
+        xs = self._vocab_lookup(emb, [rows("tokens", r)
+                                      for r in range(mesh.size)], mesh)
         frontend = cfg.frontend.kind != "none" and not self.enc_program
         if frontend:
             proj = spmd.gathered_over(head["frontend_proj"], "data")
@@ -392,6 +402,102 @@ class LM:
         count = batch["mask"].float().sum().to(devs[0])
         return total / torch.clamp(count, min=1.0)
 
+    def _vocab_lookup(self, emb: List[torch.Tensor], toks, mesh):
+        """Each position's embedding of its tokens ``toks[r]`` from its
+        rows of the table ``emb[r]``: where the vocabulary splits over
+        "model", a masked lookup in the shard's rows, all-reduced."""
+        V = self.cfg.vocab_size
+        xs = []
+        for r, (e, tok) in enumerate(zip(emb, toks)):
+            tok, n = tok.long(), e.shape[0]
+            if n == V:
+                xs.append(e[tok])
+                continue
+            idx = tok - mesh.axis_index(r, "model") * n
+            inside = (idx >= 0) & (idx < n)
+            xs.append(e[idx.clamp(0, n - 1)] * inside[..., None].to(e.dtype))
+        if emb[0].shape[0] != V:
+            xs = spmd.all_reduce(xs, mesh, "model")
+        return xs
+
+    def _prefill_mesh(self, params, batch, capacity: int, mesh):
+        """``prefill`` over ``mesh`` under ``PREFILL_RULES``: each data row
+        takes its share of the batch (the whole batch where "data" does
+        not divide it), the weights gathered over "data" layer by layer
+        (``blocks.shard_weights``), each position's q heads through flash
+        (``blocks.apply_layer_shards_prefill``); the logits from each
+        position's vocabulary shard, gathered over "model" and "data"."""
+        cfg = self.cfg
+        check_mesh_support(mesh, "prefill", cfg)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        split = bool(pspec_for(("batch", None), mesh, PREFILL_RULES,
+                               (B, S)))
+        b = B // mesh.shape.get("data", 1) if split else B
+        devs = mesh.devices
+        rows = [tokens[mesh.axis_index(r, "data") * b:][:b].to(devs[r])
+                if split else tokens.to(devs[r]) for r in range(mesh.size)]
+        head = params["head"]
+        emb = spmd.gathered_over(head["embed"], "data")
+        xs = self._vocab_lookup(emb, rows, mesh)
+        positions = [torch.arange(S, device=d).expand(b, S) for d in devs]
+        caches = []
+        for spec, p, cs in zip(self.specs, params["layers"],
+                               self.cache_specs(B, capacity), strict=True):
+            ws = blocks.shard_weights(cfg, p, mesh, pick_kv=False)
+            xs, c = blocks.apply_layer_shards_prefill(
+                cfg, spec, mesh, ws, xs, positions, cs, PREFILL_RULES)
+            caches.append(c)
+            del ws
+        norm = spmd.gathered_over(head["final_norm"], "data")
+        out = (emb if cfg.tie_embeddings
+               else spmd.gathered_over(head["lm_head"], "data"))
+        zs = []
+        for x, n, w in zip(xs, norm, out):
+            h = rms_norm(x[:, -1], n, cfg.rms_eps)
+            zs.append(h @ w.T if cfg.tie_embeddings else h @ w)
+        if zs[0].shape[-1] != cfg.vocab_size:
+            zs = spmd.all_gather(zs, mesh, "model", dim=-1)
+        if split:
+            zs = spmd.all_gather(zs, mesh, "data", dim=0)
+        return zs, caches
+
+    def _decode_mesh(self, params, caches, batch, mesh):
+        """``decode_step`` over ``mesh`` under ``DECODE_RULES``: the token
+        embedded from each position's (vocabulary, d) piece of the table
+        and summed over "model", the layers weight-stationary
+        (``blocks.apply_layer_shards_decode``), the logits each position's
+        vocabulary shard from its d piece, summed over "data" and gathered
+        over "model"."""
+        cfg = self.cfg
+        check_mesh_support(mesh, "decode", cfg)
+        head = params["head"]
+        tok = batch["token"]
+        cache_len = int(batch["cache_len"])
+        xs = self._vocab_lookup(head["embed"].pieces,
+                                [tok.to(d) for d in mesh.devices], mesh)
+        for spec, p, c in zip(self.specs, params["layers"], caches,
+                              strict=True):
+            xs = blocks.apply_layer_shards_decode(cfg, spec, mesh, p, xs, c,
+                                                  cache_len)
+        hs = blocks.norm_pieces(cfg, mesh, xs, head["final_norm"])
+        zs = [h @ w.T if cfg.tie_embeddings else h @ w for h, w in zip(
+            hs, (head["embed"] if cfg.tie_embeddings
+                 else head["lm_head"]).pieces)]
+        if xs[0].shape[-1] != cfg.d_model:
+            zs = spmd.all_reduce(zs, mesh, "data")
+        if zs[0].shape[-1] != cfg.vocab_size:
+            zs = spmd.all_gather(zs, mesh, "model", dim=-1)
+        return zs, caches
+
+    @staticmethod
+    def caches_for_decode(caches):
+        """A prefill's ``spmd.Placed`` caches laid out under
+        ``DECODE_RULES`` (``spmd.relayout_tree``): the reference's
+        ``device_put`` to the decode cell's ``in_shardings``, its bytes
+        counted by ``spmd.moved_bytes``."""
+        return spmd.relayout_tree(caches, DECODE_RULES)
+
 
 class _Remat(torch.autograd.Function):
     """Rematerialization of a function of tensors, for the mesh path: the
@@ -423,15 +529,32 @@ class _Remat(torch.autograd.Function):
         return (None, None, *full)
 
 
-def check_mesh_support(mesh) -> None:
+def check_mesh_support(mesh, kind: str = "train",
+                       cfg: Optional[ModelConfig] = None) -> None:
     """The meshes the mesh path runs: a mesh of devices over "data" and
-    "model", for every family (dense, MoE, SSM, hybrid, encoder-decoder,
-    frontend)."""
+    "model"; to train (``kind`` "train"), every family (dense, MoE, SSM,
+    hybrid, encoder-decoder, frontend); to prefill and decode, the dense
+    decoder families: every layer attention with a dense FFN, with no
+    cross-attention, encoder or frontend."""
     if mesh.devices is None:
-        raise ValueError("training on a mesh needs its devices "
-                         "(launch.mesh.make_mesh)")
+        raise ValueError(f"{kind} on a mesh needs its devices "
+                         f"(launch.mesh.make_mesh)")
     extra = set(mesh.axis_names) - {"data", "model"}
     if extra:
         raise NotImplementedError(
             f"mesh axes {sorted(extra)}: the mesh path runs over 'data' and "
             f"'model' only (ROADMAP.md §1 item 3)")
+    if kind == "train":
+        return
+    if kind not in ("prefill", "decode") or cfg is None:
+        raise ValueError(f"check_mesh_support: kind {kind!r} needs a "
+                         f"config (train, prefill or decode)")
+    specs = [make_layer_spec(cfg, i) for i in range(cfg.num_layers)]
+    if (cfg.num_encoder_layers or cfg.frontend.kind != "none"
+            or any(sp.mixer != "attn" or sp.ffn != "dense" or sp.has_cross
+                   for sp in specs)):
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} on a mesh runs the dense decoder families "
+            f"(attention layers with a dense FFN); MoE, SSM, hybrid, "
+            f"encoder-decoder and frontend configs wait for ROADMAP.md §1 "
+            f"item 3")

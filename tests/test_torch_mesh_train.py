@@ -426,10 +426,11 @@ def test_launcher_resume_onto_another_mesh(tmp_path, capsys):
 
 def test_other_families_on_a_mesh_name_item_3():
     """Every family trains on a (data, model) mesh
-    (``tests/test_torch_mesh_families.py``); what still raises names the
-    ROADMAP item that ports it: a mesh axis beside "data" and "model", for
-    each family this slice brings to the mesh, and the inspector's
-    ``--mesh`` on a prefill cell."""
+    (``tests/test_torch_mesh_families.py``), and the dense decoder
+    families prefill and decode on one (``tests/test_torch_mesh_serve.py``);
+    what still raises names the ROADMAP item that ports it: a mesh axis
+    beside "data" and "model", for each of the other families, and the
+    inspector's ``--mesh`` on an SSM config's prefill cell."""
     mesh = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
     for arch in ("mamba2-2.7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium", "paligemma-3b"):
@@ -469,8 +470,19 @@ def test_inspector_traces_a_mesh_step(monkeypatch, capsys):
     assert len(coll) == 4
     assert all("'all-gather'" in ln and "collective term" in ln
                for ln in coll)
+    # a dense decoder's decode cell runs on the mesh under DECODE_RULES
+    assert inspect_hlo.main(["--arch", "llama3-8b", "--shape", "d",
+                             "--mesh", "2,2", "--device", "cpu", "--top",
+                             "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("# llama3-8b d periods=1")
+    coll = [ln for ln in out if ln.startswith("# position")]
+    assert len(coll) == 4
+    assert all("'all-reduce'" in ln and "'all-reduce': 0," not in ln
+               for ln in coll)
+    # an SSM's decode cell does not, and names the item that ports it
     with pytest.raises(NotImplementedError, match="item 3"):
-        inspect_hlo.main(["--arch", "llama3-8b", "--shape", "d", "--mesh",
+        inspect_hlo.main(["--arch", "mamba2-2.7b", "--shape", "d", "--mesh",
                           "2,2", "--device", "cpu"])
 
 

@@ -73,9 +73,11 @@ def test_remat_group_preserves_loss():
 
 
 def test_mesh_raises_naming_item_3():
-    """A mesh trains every family (``tests/test_torch_mesh_families.py``);
-    what the launcher's step still refuses, a mesh axis other than "data"
-    and "model", raises naming the ROADMAP item that ports it."""
+    """A mesh trains every family (``tests/test_torch_mesh_families.py``)
+    and serves the dense decoder families
+    (``tests/test_torch_mesh_serve.py``); what the launcher's step still
+    refuses, a mesh axis other than "data" and "model", raises naming the
+    ROADMAP item that ports it."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optimizer.adamw import AdamWConfig
     from repro_torch.training.step import make_train_step

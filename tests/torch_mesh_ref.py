@@ -1,6 +1,6 @@
 """The reference's runs on a (data, model) mesh, for the port's mesh tests
 (``tests/test_torch_moe_ep.py``, ``tests/test_torch_mesh_train.py``,
-``tests/test_torch_mesh_families.py``).
+``tests/test_torch_mesh_families.py``, ``tests/test_torch_mesh_serve.py``).
 
 Run in a process of its own, with four XLA host devices forced before jax
 loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
@@ -8,6 +8,7 @@ loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
     python tests/torch_mesh_ref.py moe OUT.pkl
     python tests/torch_mesh_ref.py train OUT.pkl {float32,int8}
     python tests/torch_mesh_ref.py families OUT.pkl
+    python tests/torch_mesh_ref.py serve OUT.pkl
 
 It pickles numpy trees. The mesh is a ``jax.sharding.Mesh`` over the
 devices, whose axes are Auto: the reference's sharding constraints run
@@ -41,6 +42,32 @@ FAMILY_CASES = (("mamba2-2.7b", (2, 2), {}),
                 ("paligemma-3b", (2, 2), {}),
                 ("seamless-m4t-medium", (2, 2), {}),
                 ("mamba2-2.7b", (1, 2), {"ssm": dict(expand=3, head_dim=64)}))
+
+
+# prefill and decode: reduced configs in fp32 (gemma3 at six layers: five
+# local with 32-token rings and one global), batch 4, a 28-token prompt,
+# capacity 64 (62 on one (2, 2) case, which the decode's kv_seq split over
+# four positions does not divide), then 6 decode steps that write slots
+# 28-33: across the kv_seq piece boundary at 32 and round gemma3's rings
+SERVE_ARCHS = (("llama3-8b", {}), ("gemma3-1b", {"num_layers": 6}))
+SERVE_CASES = (((2, 2), 64), ((1, 4), 64), ((4, 1), 64), ((2, 2), 62))
+SERVE_B, SERVE_PROMPT, SERVE_STEPS = 4, 28, 6
+
+
+def serve_case_name(shape, cap):
+    return f"{shape[0]}x{shape[1]}@{cap}"
+
+
+def serve_cfg(rc, arch, over):
+    return dataclasses.replace(rc.get_config(arch).reduced(),
+                               dtype="float32", **over)
+
+
+def serve_tokens(cfg):
+    """The prompt and the decode steps' tokens (numpy seed 0)."""
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT + SERVE_STEPS)
+    ).astype(np.int32)
 
 
 def family_case_name(arch, shape):
@@ -204,9 +231,71 @@ def family_runs():
     return out
 
 
+def serve_runs():
+    """The reference's jitted ``lm.prefill`` under ``sharding_ctx(mesh,
+    PREFILL_RULES)`` and ``SERVE_STEPS`` ``lm.decode_step``s under
+    ``DECODE_RULES``, their inputs laid out by ``pspec_for`` as
+    ``repro.launch.inspect_hlo`` lays them, the prefill's caches moved to
+    the decode's layout by ``device_put``; ``PRNGKey(0)`` weights."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    import repro.configs as rc
+    from repro.distributed.sharding import (DECODE_RULES, PREFILL_RULES,
+                                            pspec_for, sharding_ctx)
+    from repro.launch.dryrun import _axes_leaf
+    from repro.models.common import specs_logical_axes
+    from repro.models.lm import LM
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    out = {}
+    for arch, over in SERVE_ARCHS:
+        cfg = serve_cfg(rc, arch, over)
+        lm = LM(cfg)
+        params = lm.init(jax.random.PRNGKey(0))
+        toks = serve_tokens(cfg)
+        res = out[arch] = {"params": to_np(params), "tokens": toks}
+        for shape, cap in SERVE_CASES:
+            mesh = auto_mesh(shape)
+
+            def shardings(axes, rules):
+                return jax.tree.map(lambda a: NamedSharding(
+                    mesh, pspec_for(a[0] or (), mesh, rules, a[1])),
+                    axes, is_leaf=_axes_leaf)
+            cache_axes = specs_logical_axes(lm.cache_specs(SERVE_B, cap))
+            with sharding_ctx(mesh, PREFILL_RULES):
+                prefill = jax.jit(
+                    lambda p, b: lm.prefill(p, b, cap),
+                    in_shardings=(shardings(lm.param_axes(), PREFILL_RULES),
+                                  shardings({"tokens": (("batch", None), (
+                                      SERVE_B, SERVE_PROMPT))},
+                                      PREFILL_RULES)))
+                logits, caches = prefill(
+                    params, {"tokens": jnp.asarray(toks[:, :SERVE_PROMPT])})
+            case = {"prefill": np.asarray(logits),
+                    "prefill_caches": to_np(caches), "decode": []}
+            with sharding_ctx(mesh, DECODE_RULES):
+                step = jax.jit(lm.decode_step, in_shardings=(
+                    shardings(lm.param_axes(), DECODE_RULES),
+                    shardings(cache_axes, DECODE_RULES),
+                    shardings({"token": (("batch",), (SERVE_B,)),
+                               "cache_len": ((), ())}, DECODE_RULES)))
+                caches = jax.device_put(caches,
+                                        shardings(cache_axes, DECODE_RULES))
+                for i in range(SERVE_STEPS):
+                    logits, caches = step(params, caches, {
+                        "token": jnp.asarray(toks[:, SERVE_PROMPT + i]),
+                        "cache_len": jnp.asarray(SERVE_PROMPT + i,
+                                                 jnp.int32)})
+                    case["decode"].append(np.asarray(logits))
+            case["decode_caches"] = to_np(caches)
+            res[serve_case_name(shape, cap)] = case
+    return out
+
+
 if __name__ == "__main__":
     what, path = sys.argv[1], sys.argv[2]
     res = (moe_runs() if what == "moe" else family_runs()
-           if what == "families" else train_runs(sys.argv[3:]))
+           if what == "families" else serve_runs() if what == "serve"
+           else train_runs(sys.argv[3:]))
     with open(path, "wb") as fh:
         pickle.dump(res, fh)
