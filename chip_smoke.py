@@ -23,7 +23,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    attention (both modes) and flash at a tensor-parallel shard's heads,
    llama3-8b's tp=2 (16/4/128) and tp=8 (4/1/128); flash at phase 17's
    prefill shards (llama3-8b 16/4/128 over 1016 tokens, the reduced
-   gemma3-1b 2/1/16 under its 32-token window);
+   gemma3-1b 2/1/16 under its 32-token window) and phase 18's
+   (qwen3-moe-30b-a3b 16/2/128 over 1016 tokens);
 4. timing: each kernel at main-path shapes (CUDA events, median after
    warm-up) beside its bound, its plain version and a library yardstick;
    paged attention also at the main path's decode batch (B=8, ctx 1024,
@@ -137,9 +138,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    256);
 16. the SSM, hybrid, frontend and encoder-decoder families on a mesh
    (target 90 s; cell S11), four shards stacked on the card: (a)
-   mamba2-2.7b at full width and depth (64 layers, d_in 5120, 80 heads,
-   40 a model shard) through the launcher with no mesh and with ``--mesh
-   2,2 --device cuda:0,cuda:0,cuda:0,cuda:0``, seeded bf16 weights,
+   mamba2-2.7b at full width and 32 of its 64 layers (d_in 5120, 80
+   heads, 40 a model shard; phase 18 serves all 64) through the launcher
+   with no mesh and with ``--mesh 2,2 --device
+   cuda:0,cuda:0,cuda:0,cuda:0``, seeded bf16 weights,
    ``SyntheticPacked`` seed 0, 4 x 1024 in 2 microbatches, int8 moments,
    remat, 2 steps: losses within 1e-3 of no mesh's, the launcher's step
    walls, the state after 2 steps against no mesh's (each parameter's sum
@@ -182,7 +184,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    gemma3-1b (6 layers, rings of 32) in fp32 on (2, 2), (1, 4) and (4, 1)
    stacked on the card against the CPU (logits within 1e-5 relative). (c)
    (a) over four cards, only where the machine has them
-   (``scripts/mesh_cards.py --phase 17`` runs it there).
+   (``scripts/mesh_cards.py --phase 17`` runs it there);
+18. prefill and decode of the MoE, SSM and hybrid families on a mesh
+   (cell S13), four positions stacked on the card, each as phase 17 (a)
+   (prompts, capacity, greedy steps against no mesh, bytes == the
+   dry-run's, a traced decode step, collective bytes ==
+   ``serve_mesh_decode_bytes``): (a) mamba2-2.7b at full width and depth
+   (its conv and state caches on their channels and heads), in fp32 for
+   8 steps (logits within ``SERVE_FP32_TOL`` of no mesh), then in bf16
+   for 32, held within twice bf16's own gap to fp32 with no mesh
+   (``floor_hold``: at 64 random layers that gap is 0.13 of the largest
+   logit, past ``CONTINUITY_TOL``); (b) qwen3-moe-30b-a3b at full width
+   and 12 of its 48 layers (flash at each position's 16 q heads,
+   counted; each side's dropped expert assignments printed), held alike
+   at the capacity factor E / top_k where no expert drops a token, then
+   at the config's capacity with its logits' gap reported beside the
+   drops (capacity makes the MoE discontinuous); (c) the reduced
+   qwen3-moe on (2, 2) and (1, 4), mamba2 on (2, 2) and on (1, 2) with 3
+   heads of 64, jamba at one 8-layer period on (2, 2) at capacity 62, in
+   fp32 on the card against the CPU (1e-5 relative).
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -192,7 +212,8 @@ JAX package.
 ``python3 chip_smoke.py --timing`` runs phases 1, 2 and 4 only and prints
 phase 4's times as one JSON line ``{"timing": {...}}``: the quick way to
 compare two trees' kernels on one card (run each tree's copy of the
-script in turn, within one machine).
+script in turn, within one machine). ``--phase 17`` or ``--phase 18``
+runs phases 1, 2 and that serving-mesh phase alone.
 """
 from __future__ import annotations
 
@@ -522,9 +543,12 @@ def mesh_shard_checks(torch, ops, ref, errs, dev="cuda"):
                   got, want, TOL[dname], errs)
     # phase 17's prefill shards on (2, 2), one data row's 2 prompts: the
     # full llama3-8b's 1016 tokens, the reduced gemma3-1b's 28 (window 32)
+    # and phase 18's: qwen3-moe-30b-a3b's 1016 tokens at 16/2/128
     for label, H, Hkv, D, Sp, win in (
             ("llama3-8b (2, 2) prefill shard", 16, 4, 128, 1016, 0),
-            ("reduced gemma3-1b (2, 2) prefill shard", 2, 1, 16, 28, 32)):
+            ("reduced gemma3-1b (2, 2) prefill shard", 2, 1, 16, 28, 32),
+            ("qwen3-moe-30b-a3b (2, 2) prefill shard", 16, 2, 128, 1016,
+             0)):
         for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             q, k, v = (torch.randn((2, Sp, h, D), generator=g,
                                    device=dev).to(dt) for h in (H, Hkv, Hkv))
@@ -2430,19 +2454,6 @@ def launch_with_state(torch, args, dev, step_ms=None):
         return losses, checkpoint_measures(torch, last, dev)
 
 
-def route_drops(torch, moe):
-    """A wrapper of ``moe.route`` and the list it appends each call's
-    dropped assignments to (a device count, read at the end)."""
-    seen = []
-    route = moe.route
-
-    def counting(*a, **kw):
-        r = route(*a, **kw)
-        seen.append((~r.keep).sum())
-        return r
-    return counting, seen
-
-
 def mesh_step_profile(torch, step_fn, state, batches, mesh, label,
                       warm_up=True):
     """A warm-up step on the first batch (unless the caller's runs warmed
@@ -2650,19 +2661,19 @@ def mesh_phase(torch, train_losses, train_sums, dev="cuda"):
             qstate, m = fn(qstate, b)
             out.append(float(m["loss"]))
         qlosses[run] = out
-        counting, seen = route_drops(torch, moe)
-        orig, moe.route = moe.route, counting
+        recording, seen = route_records(torch, moe)
+        orig, moe.route_logits = moe.route_logits, recording
         try:
             with torch.no_grad():
                 qlm.train_loss(qstate.params, qbatches[0], remat=False,
                                mesh=qmesh)
         finally:
-            moe.route = orig
+            moe.route_logits = orig
         held_b = (spmd.bytes_per_position(qstate.params) if qmesh
                   else [sum(t.numel() * t.element_size()
                             for t in flatten(qstate.params)[0])])
         n = qmesh.size if qmesh else 1
-        drops = [int(x) for x in seen]
+        drops = [int(x[0]) for x in seen]
         per_data = {}
         for i, dcount in enumerate(drops):
             r = i % n
@@ -2833,11 +2844,18 @@ def fp32_states_apart(got, want, first_grads, opt):
     return mom, worst(off_rest), worst(flat_gap), flat_apart, seen
 
 
+# phase 16 (a)'s depth: 32 of mamba2-2.7b's 64 layers at full width (the
+# script passed 900 s of its 1200 s on a slow host once phase 18 came;
+# phase 18 (a) serves mamba2 at its full depth)
+MESH_FAMILY_DEPTH = 32
+
+
 def mesh_families_phase(torch):
     """Training the SSM, hybrid, frontend and encoder-decoder families on a
     (data, model) mesh stacked on the card (cell S11): (a) mamba2-2.7b at
-    full width and depth through the launcher with no mesh and on (2, 2),
-    2 steps each with a checkpoint: losses, the launcher's step walls, the
+    full width and ``MESH_FAMILY_DEPTH`` layers through the launcher with
+    no mesh and on (2, 2), 2 steps each with a checkpoint: losses, the
+    launcher's step walls, the
     state against the no-mesh run's with the frozen-update control, the
     bytes a position holds against the dry-run, then one traced step
     through ``make_train_step`` (busy, peak, collective bytes by kind, top
@@ -2870,11 +2888,13 @@ def mesh_families_phase(torch):
     ops.reset_launch_counts()
 
     # (a) mamba2-2.7b through the launcher, with no mesh and on (2, 2)
-    cfg = get_config("mamba2-2.7b")
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                              num_layers=MESH_FAMILY_DEPTH)
     B, S, MB, steps = 4, 1024, 2, 2
-    args = ["--arch", "mamba2-2.7b", "--steps", str(steps), "--batch",
-            str(B), "--seq", str(S), "--microbatches", str(MB),
-            "--moments-dtype", "int8", "--log-every", "1"]
+    args = ["--arch", "mamba2-2.7b", "--layers", str(MESH_FAMILY_DEPTH),
+            "--steps", str(steps), "--batch", str(B), "--seq", str(S),
+            "--microbatches", str(MB), "--moments-dtype", "int8",
+            "--log-every", "1"]
     runs = {}
     for name, extra in (("no mesh", ["--device", dev]),
                         ("(2, 2)", ["--mesh", "2,2", "--device",
@@ -3117,38 +3137,171 @@ SERVE_MESH_CPU_RTOL = 1e-5
 
 def serve_mesh_decode_bytes(cfg, D, M, B):
     """The collective bytes a position counts in one decode step of
-    ``cfg`` (an attention-only config, weights at ``cfg.dtype``) on a (D,
-    M) mesh under ``DECODE_RULES`` with batch B, from the shapes, each at
-    its result's size: a layer all-reduces over "data" the fp32 sums of
-    squares of its two norms (B, 1) and the partials of q (B, H/M, hd), k
-    and v (B, Hkv/M, hd), w_gate and w_up (B, d_ff/M); over "model" the
-    partials of wo and w_down (B, d/D); over the grid the softmax's fp32
-    max and weight sums (B, Hkv, G, 1) and outputs (B, Hkv, G, hd); it
-    all-gathers over "model" q (B, H, hd) and the new k and v (B, Hkv,
-    hd). The head all-reduces the embedding (B, d/D) over "model", the
-    final norm's sum of squares, the logits' partials (B, V/M) over
-    "data", and all-gathers the logits (B, V) over "model"."""
+    ``cfg`` (a decoder-only config, weights at ``cfg.dtype``) on a (D, M)
+    mesh under ``DECODE_RULES`` with batch B, from the shapes, each at its
+    result's size. Where d splits over "data", every norm all-reduces its
+    fp32 sum of squares (B, 1) over "data", and every input projection its
+    partial sums: an attention layer's q (B, H/M, hd), k and v (B, Hkv/M,
+    hd); an SSM layer's z and x (B, d_in/M), B and C (B, N) and dt (B,
+    Hs/M); a dense FFN's w_gate and w_up (B, d_ff/M); an MoE FFN's fp32
+    router logits (B, E) and its w_gate and w_up products (E/M, cap, f),
+    cap the whole batch's. Over "model", where they split, the output
+    projections' partials (B, d/D): wo, out_proj (after the gated norm's
+    fp32 sum of squares), w_down, the experts' fp32 combine. Over the grid
+    the softmax's fp32 max and weight sums (B, Hkv, G, 1) and outputs (B,
+    Hkv, G, hd); it all-gathers over "model" q (B, H, hd) and the new k
+    and v (B, Hkv, hd), and an SSM layer whose channels split but heads do
+    not its conv outputs (B, d_in). The head all-reduces the embedding (B,
+    d/D) over "model", the final norm's sum of squares, the logits'
+    partials (B, V/M) over "data", and all-gathers the logits (B, V) over
+    "model"."""
+    import math
+    from repro_torch.models.blocks import make_layer_spec
     from repro_torch.models.common import dtype_of
+    from repro_torch.models.moe import expert_parallelism
     e = dtype_of(cfg.dtype).itemsize
-    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    G, f, V = H // Hkv, cfg.d_ff, cfg.vocab_size
-    layer_ar = (2 * B * 4 + B * (H // M) * hd * e + 2 * B * (Hkv // M) * hd
-                * e + 2 * B * (f // M) * e + 2 * B * (d // D) * e
-                + 2 * B * Hkv * G * 4 + B * Hkv * G * hd * 4)
-    layer_ag = B * H * hd * e + 2 * B * Hkv * hd * e
-    L = cfg.num_layers
-    return {"all-reduce": L * layer_ar + B * (d // D) * e + B * 4
-            + B * (V // M) * e,
-            "all-gather": L * layer_ag + B * V * e, "reduce-scatter": 0}
+    d, V = cfg.d_model, cfg.vocab_size
+    sd = D > 1 and d % D == 0
+    dp = d // D if sd else d
+
+    def per(n):                     # a dim's piece over "model"
+        return n // M if M > 1 and n % M == 0 else n
+
+    def data(n):                    # partial sums over "data"
+        return n if sd else 0
+
+    ar = ag = 0
+    for i in range(cfg.num_layers):
+        spec = make_layer_spec(cfg, i)
+        if spec.mixer == "attn":
+            H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            G = H // Hkv
+            ar += data(B * 4 + B * per(H) * hd * e
+                       + 2 * B * per(Hkv) * hd * e)
+            if D * M > 1:
+                ar += 2 * B * Hkv * G * 4 + B * Hkv * G * hd * 4
+            if per(H) != H:
+                ar += B * dp * e
+                ag += B * H * hd * e
+            if per(Hkv) != Hkv:
+                ag += 2 * B * Hkv * hd * e
+        else:
+            s = cfg.ssm
+            d_in = s.expand * d
+            Hs = d_in // s.head_dim
+            ar += data(B * 4 + 2 * B * per(d_in) * e + 2 * B * s.state_dim
+                       * e + B * per(Hs) * e)
+            if per(d_in) != d_in:
+                ar += B * 4 + B * dp * e
+                if per(Hs) == Hs:
+                    ag += B * d_in * e
+        if spec.ffn == "dense":
+            f = cfg.d_ff
+            ar += data(B * 4 + 2 * B * per(f) * e)
+            if per(f) != f:
+                ar += B * dp * e
+        elif spec.ffn == "moe":
+            m = cfg.moe
+            E, f = m.num_experts, m.expert_d_ff or cfg.d_ff
+            ep = expert_parallelism(E, M)
+            el = E // M if ep == M and M > 1 else E
+            cap = max(math.ceil(B * m.top_k / (el * ep)
+                                * m.capacity_factor), 1)
+            ar += data(B * 4 + B * E * 4 + 2 * el * cap * f * e)
+            if el != E:
+                ar += B * dp * 4
+    if per(V) != V:
+        ar += B * dp * e
+        ag += B * V * e
+    ar += data(B * 4 + B * per(V) * e)
+    return {"all-reduce": ar, "all-gather": ag, "reduce-scatter": 0}
 
 
-def greedy_run(torch, lm, params, toks, cap, steps, mesh=None):
+def route_records(torch, moe):
+    """A wrapper of ``moe.route_logits`` (every routing: the prefill's and
+    the serving mesh's decode) and the list it appends each call's record
+    to: its dropped assignments, each token's top-k experts in order, and
+    the router's margin between the k-th and the (k+1)-th logit."""
+    seen = []
+    route = moe.route_logits
+
+    def recording(logits, mcfg, *a, **kw):
+        r = route(logits, mcfg, *a, **kw)
+        v = logits.topk(mcfg.top_k + 1, dim=-1).values
+        seen.append(((~r.keep).sum(), r.top_idx.sort(dim=-1).values,
+                     v[:, -2] - v[:, -1]))
+        return r
+    return recording, seen
+
+
+def routed_agree(torch, want, got, rec_want, rec_got, n_moe, mesh, B,
+                 prefill_rows, label, tol, tie):
+    """``streams_agree`` for an MoE, row by row, up to each row's first
+    routing that differs: where a token's top-k experts differ between
+    no mesh (``rec_want``, ``route_records``; a prefill of
+    ``prefill_rows`` rows at a time, or all) and the mesh (``rec_got``:
+    a data row's prefill on its positions, the decode's batch on every
+    position), the row's logits past it are not held, and the router's
+    k-th margin there must be a near tie (at most ``tie`` on one side).
+    Returns (worst relative gap, divergences as ``streams_agree``'s,
+    the stream entries held a row, the first routing that differs a row
+    as (MoE layer, token, margins))."""
+    P, M = mesh.size, mesh.shape["model"]
+    D = P // M
+    G = B // (prefill_rows or B)
+    S = rec_got[0][1].shape[0] // (B // D)
+
+    def sides(t, i):
+        """Each side's (top-k, margins) of MoE layer i at stream entry t
+        (0 the prefill, rows' tokens in order; t the decode step t-1)."""
+        if t == 0:
+            w = [rec_want[g * n_moe + i] for g in range(G)]
+            m = [rec_got[i * P + g * M] for g in range(D)]
+        else:
+            w = [rec_want[G * n_moe + (t - 1) * n_moe + i]]
+            m = [rec_got[P * n_moe + ((t - 1) * n_moe + i) * P]]
+        return [(torch.cat([r[1] for r in x]), torch.cat([r[2] for r in x]))
+                for x in (w, m)]
+
+    held, first = [len(want)] * B, [None] * B
+    for t in range(len(want)):
+        tok = S if t == 0 else 1
+        for i in range(n_moe):
+            (tw, mw), (tg, mg) = sides(t, i)
+            diff = (tw != tg).any(dim=-1).reshape(B, tok)
+            for b in range(B):
+                if held[b] <= t or not diff[b].any():
+                    continue
+                j = int(diff[b].nonzero()[0])
+                m = (float(mw[b * tok + j]), float(mg[b * tok + j]))
+                held[b], first[b] = t, (i, j, m)
+                if min(m) > tie:
+                    raise AssertionError(f"{label}: row {b} routes token {j}"
+                                         f" of stream entry {t} at MoE layer "
+                                         f"{i} apart with router margins {m}")
+    worst, divs = 0.0, []
+    for b in range(B):
+        if held[b]:
+            rel, d = streams_agree(torch, [w[b:b + 1] for w in want[:held[b]]],
+                                   [g[b:b + 1] for g in got[:held[b]]],
+                                   f"{label} row {b}", tol, DIVERGENCE_TIE)
+            worst = max(worst, rel)
+            divs += [(b,) + x[1:] for x in d]
+    return worst, divs, held, first
+
+
+def greedy_run(torch, lm, params, toks, cap, steps, mesh=None,
+               prefill_rows=None):
     """``lm.prefill`` of ``toks`` (B, S) at ``cap``, then ``steps`` greedy
     ``decode_step``s; on ``mesh``, the prefill's caches moved to the
     decode layout between the two (``LM.caches_for_decode``, outside the
-    timed decode). Returns each step's logits in fp32 (the prefill's
-    first; position 0's on a mesh), the prefill's flash launches, its
-    caches' bytes a position (on a mesh), the walls, and the caches."""
+    timed decode); with ``prefill_rows`` (no mesh), each ``prefill_rows``
+    rows prefilled on their own (as a data row of a mesh prefills them:
+    an MoE's capacity counts their tokens), their caches joined, and the
+    batch decoded whole. Returns each step's logits in fp32 (the
+    prefill's first; position 0's on a mesh), the prefill's flash
+    launches, its caches' bytes a position (on a mesh), the walls, and
+    the caches."""
     from repro_torch.distributed import spmd
     from repro_torch.kernels import ops
     S = toks.shape[1]
@@ -3156,7 +3309,17 @@ def greedy_run(torch, lm, params, toks, cap, steps, mesh=None):
     sync()
     before = ops.launch_counts()["flash_attention"]
     t0 = time.perf_counter()
-    logits, caches = lm.prefill(params, {"tokens": toks}, cap, mesh=mesh)
+    if prefill_rows:
+        parts = [lm.prefill(params, {"tokens": toks[i:i + prefill_rows]},
+                            cap) for i in range(0, toks.shape[0],
+                                                prefill_rows)]
+        logits = torch.cat([z for z, _ in parts])
+        caches = [{k: torch.cat([p[1][i][k] for p in parts])
+                   for k in layer} for i, layer in enumerate(parts[0][1])]
+        del parts
+    else:
+        logits, caches = lm.prefill(params, {"tokens": toks}, cap,
+                                    mesh=mesh)
     sync()
     res = dict(prefill_s=time.perf_counter() - t0,
                flash=ops.launch_counts()["flash_attention"] - before)
@@ -3184,13 +3347,14 @@ def greedy_run(torch, lm, params, toks, cap, steps, mesh=None):
     return res
 
 
-def streams_agree(torch, want, got, label):
+def streams_agree(torch, want, got, label, tol=CONTINUITY_TOL,
+                  tie=DIVERGENCE_TIE):
     """``got``'s greedy steps against ``want``'s, row by row: each step's
-    logits within ``CONTINUITY_TOL`` of the largest |logit| up to the
-    row's first divergence (past it the two decode other tokens), and a
-    divergence only where not both top-2 margins exceed
-    ``DIVERGENCE_TIE``. Returns (worst relative gap, divergences as (row,
-    step, margin want, margin got))."""
+    logits within ``tol`` of the largest |logit| up to the row's first
+    divergence (past it the two decode other tokens), and a divergence
+    only where not both top-2 margins exceed ``tie``. Returns (worst
+    relative gap, divergences as (row, step, margin want, margin
+    got))."""
     B = want[0].shape[0]
     worst_rel, divs = 0.0, []
     for b in range(B):
@@ -3198,7 +3362,7 @@ def streams_agree(torch, want, got, label):
             gap = (w[b] - g[b]).abs().max().item()
             rel = gap / w[b].abs().max().item()
             worst_rel = max(worst_rel, rel) if np.isfinite(rel) else rel
-            if not np.isfinite(rel) or rel > CONTINUITY_TOL:
+            if not np.isfinite(rel) or rel > tol:
                 raise AssertionError(f"{label}: row {b} step {t}: max "
                                      f"|dlogit| {gap} is {rel:.4f} of the "
                                      f"largest logit")
@@ -3206,14 +3370,38 @@ def streams_agree(torch, want, got, label):
                 m = [(x[b].topk(2).values[0] - x[b].topk(2).values[1]).item()
                      for x in (w, g)]
                 divs.append((b, t, m[0], m[1]))
-                if min(m) > DIVERGENCE_TIE:
+                if min(m) > tie:
                     raise AssertionError(f"{label}: row {b} parts at step "
                                          f"{t} with top-2 margins {m}")
                 break
     return worst_rel, divs
 
 
-def serve_mesh_full(torch, devices, label):
+def floor_hold(torch, want, exact, label):
+    """The hold ``serve_mesh_full(..., floor=...)`` widens to: ``want``
+    (no mesh, in the config's dtype) against ``exact`` (the same model and
+    prompts with no mesh in fp32) gives the noise floor of the dtype
+    itself, the worst relative gap up to each row's first divergence and
+    the widest top-2 margin where they part; returns (twice the gap, at
+    least ``CONTINUITY_TOL``; twice that margin, at least
+    ``DIVERGENCE_TIE``): the mesh may stand as far from no mesh as two
+    runs each as far from fp32."""
+    rel, divs = streams_agree(torch, exact, want, label, np.inf, np.inf)
+    widest = max((min(a, c) for _, _, a, c in divs), default=0.0)
+    tol = max(CONTINUITY_TOL, 2 * rel)
+    tie = max(DIVERGENCE_TIE, 2 * widest)
+    log(f"{label}: noise floor, no mesh against the same in fp32: logits "
+        f"within {rel:.4e} of the largest |logit| up to each row's first "
+        f"divergence, divergences (row, step, margin fp32, margin) {divs}; "
+        f"the mesh is held within {tol:.4e}, near ties up to {tie:.4e}")
+    return tol, tie
+
+
+def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
+                    tag="serve mesh (a)", dtype=None, floor=None,
+                    detail=True, steps=32, tol=CONTINUITY_TOL,
+                    prefill_rows=None, capacity_factor=None,
+                    routed=False):
     """Phase 17 (a): llama3-8b at full width and depth, seeded bf16
     weights (``init_lm_params``, seed 0, as phase 5 draws them), placed on
     a (2, 2) mesh over ``devices`` beside a copy with no mesh; 4 prompts
@@ -3221,10 +3409,24 @@ def serve_mesh_full(torch, devices, label):
     prompts) prefilled at capacity 4,096 under ``PREFILL_RULES``, the
     caches moved to ``DECODE_RULES``, then 32 greedy decode steps, held to
     the same with no mesh (``streams_agree``); bytes a position against
-    the dry-run, flash launched once a layer a position in the prefill,
-    then one traced decode step (busy share, top operations, collective
-    bytes a position against ``serve_mesh_decode_bytes``) and one under
-    ``FlopCounterMode`` for the roofline's terms."""
+    the dry-run, flash launched once an attention layer a position in the
+    prefill, then one traced decode step (busy share, top operations,
+    collective bytes a position against ``serve_mesh_decode_bytes``) and
+    one under ``FlopCounterMode`` for the roofline's terms. Phase 18 runs
+    it for ``arch`` at ``layers`` of its layers (all by default), in
+    ``dtype`` (the config's by default), for ``steps`` decode steps, and
+    for an MoE config counts and prints each side's dropped assignments.
+    ``floor``: the no-mesh fp32 logits of the same prompts (which
+    ``detail=False`` returns), against which ``floor_hold`` widens the
+    hold. ``detail=False`` stops after the logits check (no traced step,
+    no roofline). ``tol``: the hold without ``floor``.
+    ``prefill_rows``: the no-mesh side prefills a data row's prompts at a
+    time and decodes the batch whole (``greedy_run``), as the mesh
+    reckons an MoE's capacity. ``capacity_factor``: the MoE's, in place
+    of the config's; at E / top_k or more no expert can drop a token, and
+    a drop on either side fails. ``tol=None``: the logits' gap is
+    reported, not held. ``routed``: an MoE held row by row up to its
+    first token routed to other experts (``routed_agree``)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ShapeConfig, get_config
@@ -3234,11 +3436,19 @@ def serve_mesh_full(torch, devices, label):
     from repro_torch.launch.inspect_hlo import top_ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.common import specs_logical_axes, specs_to_structs
+    from repro_torch.models import moe
     from repro_torch.models.lm import LM
     from repro_torch.models.params import init_lm_params
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     lm = LM(cfg)
-    B, plen, cap, steps = 4, 1016, 4096, 32
+    B, plen, cap = 4, 1016, 4096
     for d in sorted(set(devices)):
         torch.cuda.reset_peak_memory_stats(d)
     rng = np.random.default_rng(13)
@@ -3259,9 +3469,26 @@ def serve_mesh_full(torch, devices, label):
             dryrun.tree_bytes_per_device(specs_to_structs(specs),
                                          specs_logical_axes(specs), mesh,
                                          rules))
-    one = greedy_run(torch, lm, params, toks, cap, steps)
-    got = greedy_run(torch, lm, placed, toks, cap, steps, mesh)
-    log(f"serve mesh (a) {label}: bytes a position: weights {held} (dry-run "
+    drops, runs, recs = {}, {}, {}
+    for side, p, m in (("no mesh", params, None), ("mesh", placed, mesh)):
+        recording, seen = route_records(torch, moe)
+        orig, moe.route_logits = moe.route_logits, recording
+        try:
+            res = greedy_run(torch, lm, p, toks, cap, steps, m,
+                             None if m is not None else prefill_rows)
+        finally:
+            moe.route_logits = orig
+        n_pre = sum(map(cfg.layer_is_moe, range(cfg.num_layers))) * (
+            mesh.size if m is not None else B // (prefill_rows or B))
+        # every position of a data row routes its tokens alike, and every
+        # position routes the decode's batch: each routing counted once
+        pre, dec = (mesh.shape["model"], mesh.size) if m is not None \
+            else (1, 1)
+        drops[side] = (sum(int(x[0]) for x in seen[:n_pre]) // pre,
+                       sum(int(x[0]) for x in seen[n_pre:]) // dec)
+        runs[side], recs[side] = res, seen
+    one, got = runs.pop("no mesh"), runs.pop("mesh")
+    log(f"{tag} {label}: bytes a position: weights {held} (dry-run "
         f"{want['prefill'][0]:.0f} under PREFILL_RULES, "
         f"{want['decode'][0]:.0f} under DECODE_RULES), caches "
         f"{got['prefill_cache_bytes']} after the prefill (dry-run "
@@ -3272,27 +3499,66 @@ def serve_mesh_full(torch, devices, label):
     if not (held == [want["prefill"][0]] * 4 == [want["decode"][0]] * 4
             and got["prefill_cache_bytes"] == [want["prefill"][1]] * 4
             and got["decode_cache_bytes"] == [want["decode"][1]] * 4):
-        raise AssertionError(f"serve mesh (a) {label}: bytes a position "
+        raise AssertionError(f"{tag} {label}: bytes a position "
                              f"differ from the dry-run's")
-    n_flash = cfg.num_layers * mesh.size
-    log(f"serve mesh (a) {label}: flash launches in the prefill {got['flash']}"
-        f" ({cfg.num_layers} layers x {mesh.size} positions = {n_flash}); "
-        f"no mesh {one['flash']}")
-    if got["flash"] != n_flash or one["flash"] != cfg.num_layers:
-        raise AssertionError(f"serve mesh (a) {label}: flash launched "
+    n_attn = cfg.num_attn_layers
+    n_flash = n_attn * mesh.size
+    log(f"{tag} {label}: flash launches in the prefill {got['flash']}"
+        f" ({n_attn} attention layers x {mesh.size} positions = {n_flash});"
+        f" no mesh {one['flash']}")
+    if got["flash"] != n_flash or one["flash"] != n_attn * (
+            B // (prefill_rows or B)):
+        raise AssertionError(f"{tag} {label}: flash launched "
                              f"{got['flash']} times, not {n_flash}")
-    rel, divs = streams_agree(torch, one["logits"], got["logits"],
-                              f"serve mesh (a) {label}")
-    log(f"serve mesh (a) {label}: {steps} greedy steps against no mesh: "
+    if cfg.moe is not None:
+        if cfg.moe.capacity_factor * cfg.moe.top_k >= cfg.moe.num_experts \
+                and any(sum(d) for d in drops.values()):
+            raise AssertionError(f"{tag} {label}: an expert dropped a "
+                                 f"token at capacity factor "
+                                 f"{cfg.moe.capacity_factor}: {drops}")
+        alike = ", as the no-mesh side does" if prefill_rows else ""
+        log(f"{tag} {label}: dropped expert assignments (prefill, decode; "
+            f"each routing once): no mesh {drops['no mesh']}, mesh "
+            f"{drops['mesh']} (the mesh prefill's capacity counts a data "
+            f"row's tokens{alike}; capacity factor "
+            f"{cfg.moe.capacity_factor})")
+    tie = DIVERGENCE_TIE
+    if floor is not None:
+        tol, tie = floor_hold(torch, one["logits"], floor, f"{tag} {label}")
+    hold = (f"tolerance {tol:.4e}, near ties up to {tie:.4e}"
+            if tol is not None else "reported, not held")
+    if tol is None:
+        tol, tie = np.inf, np.inf
+    if routed:
+        n_moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers)))
+        rel, divs, held, first = routed_agree(
+            torch, one["logits"], got["logits"], recs["no mesh"],
+            recs["mesh"], n_moe, mesh, B, prefill_rows, f"{tag} {label}",
+            tol, DIVERGENCE_TIE)
+        log(f"{tag} {label}: stream entries held a row (up to its first "
+            f"routing that differs; {steps + 1} in all) {held}; first "
+            f"routings that differ (MoE layer, token, router k-th margins "
+            f"no mesh, mesh) {first}")
+    else:
+        rel, divs = streams_agree(torch, one["logits"], got["logits"],
+                                  f"{tag} {label}", tol, tie)
+    del recs
+    log(f"{tag} {label}: {steps} greedy steps against no mesh: "
         f"logits within {rel:.4e} of the largest |logit| up to each row's "
-        f"first divergence (tolerance {CONTINUITY_TOL}); divergences (row, "
-        f"step, margin no mesh, margin mesh): {divs}")
-    log(f"serve mesh (a) {label}: prefill of {B} x {plen} tokens "
+        f"first divergence ({hold}); divergences (row, step, margin no "
+        f"mesh, margin mesh): {divs}")
+    log(f"{tag} {label}: prefill of {B} x {plen} tokens "
         f"{got['prefill_s'] * 1e3:.1f} ms on the mesh, "
         f"{one['prefill_s'] * 1e3:.1f} ms with no mesh; decode "
         f"{got['step_s'] * 1e3:.1f} ms a step on the mesh, "
         f"{one['step_s'] * 1e3:.1f} ms with no mesh (mean of {steps}); the "
         f"positions run from one host thread: no wall here is a speed-up")
+    if not detail:
+        no_mesh = one["logits"]
+        del params, placed, one, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(rel=rel, divs=divs, drops=drops, no_mesh=no_mesh)
     caches = got["caches"]
     tok = got["logits"][-1].argmax(-1)
     del one, got["logits"]
@@ -3315,7 +3581,7 @@ def serve_mesh_full(torch, devices, label):
                                         "cache_len": plen + steps + 1},
                        mesh=mesh)
     flops = float(fc.get_total_flops()) / mesh.size
-    shape = ShapeConfig("s12_decode", plen + steps, B, "decode")
+    shape = ShapeConfig("mesh_decode", plen + steps, B, "decode")
     mem = roofline.analytic_memory_bytes(
         cfg, shape, weights_local=held[0], opt_local=0,
         cache_local=want["decode"][1], data_shards=1, model_shards=2,
@@ -3323,11 +3589,11 @@ def serve_mesh_full(torch, devices, label):
     terms = roofline.roofline_terms(flops, mem["total"],
                                     sum(coll[0].values()))
     peaks = [torch.cuda.max_memory_allocated(d) for d in sorted(set(devices))]
-    log(f"serve mesh (a) {label}: a traced decode step {traced_s * 1e3:.1f} "
+    log(f"{tag} {label}: a traced decode step {traced_s * 1e3:.1f} "
         f"ms of wall, device busy {busy:.1f} ms ({busy / (traced_s * 1e3):.3f}"
         f" of wall); top device operations (ms, calls): "
         + "; ".join(f"{n[:60]} {ms:.2f} ({c})" for n, (ms, c) in tops))
-    log(f"serve mesh (a) {label}: collective bytes a position a decode step "
+    log(f"{tag} {label}: collective bytes a position a decode step "
         f"{coll} (predicted from the shapes {pred}); roofline a position: "
         f"FLOPs {flops:.4e}, bytes {mem['total']:.4e}, compute "
         f"{terms['compute_s'] * 1e3:.4f} ms, memory "
@@ -3335,64 +3601,84 @@ def serve_mesh_full(torch, devices, label):
         f"{terms['collective_s'] * 1e3:.4f} ms ({terms['bottleneck']}); "
         f"peak memory {peaks} B (the no-mesh copy and its caches included)")
     if any(c != pred for c in coll):
-        raise AssertionError(f"serve mesh (a) {label}: collective bytes "
+        raise AssertionError(f"{tag} {label}: collective bytes "
                              f"{coll} differ from the shapes' {pred}")
     del params, placed, caches
     gc.collect()
     torch.cuda.empty_cache()
     return dict(traced_s=traced_s, busy_ms=busy, coll=coll[0], peaks=peaks,
-                terms=terms)
+                terms=terms, drops=drops)
 
 
-def serve_mesh_reduced(torch):
+# phase 17 (b)'s reduced configs, meshes and capacities
+SERVE_MESH_REDUCED = tuple((arch, over, shape, 64)
+                           for arch, over in (("llama3-8b", {}),
+                                              ("gemma3-1b", {"num_layers": 6}))
+                           for shape in ((2, 2), (1, 4), (4, 1)))
+# phase 18 (c)'s: the cases of tests/test_torch_mesh_serve_families.py
+SERVE_FAMILIES_REDUCED = (
+    ("qwen3-moe-30b-a3b", {}, (2, 2), 64),
+    ("qwen3-moe-30b-a3b", {}, (1, 4), 64),
+    ("mamba2-2.7b", {}, (2, 2), 64),
+    ("mamba2-2.7b", {"ssm": dict(expand=3, head_dim=64)}, (1, 2), 64),
+    ("jamba-1.5-large-398b", {"num_layers": 8}, (2, 2), 62))
+
+
+def serve_mesh_reduced(torch, cases=SERVE_MESH_REDUCED,
+                       tag="serve mesh (b)"):
     """Phase 17 (b): the reduced llama3-8b and gemma3-1b (6 layers, five
     local with 32-token rings, one global) in fp32 on (2, 2), (1, 4) and
     (4, 1) stacked on the card against the same on the CPU: prefill of 4 x
     28 tokens at capacity 64, the move to the decode layout, 6 decode
     steps on fixed tokens (slots 28-33, across a piece boundary and round
     the rings), every step's logits within ``SERVE_MESH_CPU_RTOL`` of the
-    largest |logit| and every position's equal."""
+    largest |logit| and every position's equal. Phase 18 (c) runs
+    ``SERVE_FAMILIES_REDUCED`` (arch, config overrides, mesh, capacity)
+    alike."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import PREFILL_RULES
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import LM
     from repro_torch.models.params import init_lm_params
-    for arch, over in (("llama3-8b", {}), ("gemma3-1b", {"num_layers": 6})):
-        cfg = dataclasses.replace(get_config(arch).reduced(),
-                                  dtype="float32", **over)
+    for arch, over, shape, cap in cases:
+        base = get_config(arch).reduced()
+        over = dict(over)
+        if "ssm" in over:
+            over["ssm"] = dataclasses.replace(base.ssm, **over["ssm"])
+        cfg = dataclasses.replace(base, dtype="float32", **over)
         lm = LM(cfg)
         params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
         toks = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (4, 34))).long()
-        for shape in ((2, 2), (1, 4), (4, 1)):
-            runs = []
-            for where in ("cpu", "cuda"):
-                mesh = make_mesh(shape, ("data", "model"), [where] * 4)
-                placed = spmd.place_tree(params, lm.param_axes(), mesh,
-                                         PREFILL_RULES)
-                z, caches = lm.prefill(placed, {"tokens": toks[:, :28].to(
-                    where)}, 64, mesh=mesh)
-                caches = lm.caches_for_decode(caches)
-                out = [z]
-                for i in range(6):
-                    z, caches = lm.decode_step(placed, caches, {
-                        "token": toks[:, 28 + i].to(where),
-                        "cache_len": 28 + i}, mesh=mesh)
-                    out.append(z)
-                for step in out:
-                    if any(not torch.equal(t, step[0]) for t in step[1:]):
-                        raise AssertionError(f"serve mesh (b) {arch} {shape}"
-                                             f": positions' logits differ")
-                runs.append([step[0].cpu() for step in out])
-            rel = max(((a - b).abs().max() / a.abs().max()).item()
-                      for a, b in zip(*runs))
-            log(f"serve mesh (b) {cfg.name} fp32 on {shape} stacked, card vs "
-                f"CPU: prefill and 6 decode steps' logits within {rel:.3e} "
-                f"relative (tolerance {SERVE_MESH_CPU_RTOL})")
-            if not rel <= SERVE_MESH_CPU_RTOL:
-                raise AssertionError(f"serve mesh (b): {arch} {shape} card "
-                                     f"!= CPU ({rel})")
+        runs = []
+        for where in ("cpu", "cuda"):
+            mesh = make_mesh(shape, ("data", "model"),
+                             [where] * (shape[0] * shape[1]))
+            placed = spmd.place_tree(params, lm.param_axes(), mesh,
+                                     PREFILL_RULES)
+            z, caches = lm.prefill(placed, {"tokens": toks[:, :28].to(
+                where)}, cap, mesh=mesh)
+            caches = lm.caches_for_decode(caches)
+            out = [z]
+            for i in range(6):
+                z, caches = lm.decode_step(placed, caches, {
+                    "token": toks[:, 28 + i].to(where),
+                    "cache_len": 28 + i}, mesh=mesh)
+                out.append(z)
+            for step in out:
+                if any(not torch.equal(t, step[0]) for t in step[1:]):
+                    raise AssertionError(f"{tag} {cfg.name} {shape}: "
+                                         f"positions' logits differ")
+            runs.append([step[0].cpu() for step in out])
+        rel = max(((a - b).abs().max() / a.abs().max()).item()
+                  for a, b in zip(*runs))
+        log(f"{tag} {cfg.name} fp32 on {shape} stacked at capacity {cap}, "
+            f"card vs CPU: prefill and 6 decode steps' logits within "
+            f"{rel:.3e} relative (tolerance {SERVE_MESH_CPU_RTOL})")
+        if not rel <= SERVE_MESH_CPU_RTOL:
+            raise AssertionError(f"{tag}: {cfg.name} {shape} card != CPU "
+                                 f"({rel})")
 
 
 def serve_mesh_phase(torch):
@@ -3427,9 +3713,81 @@ def serve_mesh_phase(torch):
     return launches
 
 
+# --------------------------------------------------------------- phase 18
+
+# phase 18 (a) in fp32: the logits on the mesh against no mesh, relative
+# to the largest |logit| (fp32 rounding over 64 layers; the CPU gives
+# below 5e-5 at mamba2's width and 16 layers)
+SERVE_FP32_TOL = 1e-3
+# phase 18 (b)'s depth: 12 of qwen3-moe-30b-a3b's 48 layers at full width
+# (8.1 B parameters, 16.2 GB in bf16): the stacked shards, a no-mesh copy
+# and the caches fit one card
+SERVE_MOE_DEPTH = 12
+
+
+def serve_mesh_families_phase(torch):
+    """Prefill and decode of the MoE, SSM and hybrid families on a (data,
+    model) mesh (cell S13), four positions stacked on the card, each as
+    phase 17 (a) (``serve_mesh_full``). (a) mamba2-2.7b at full width and
+    depth (tied embeddings; its conv and state caches on their channels
+    and heads): first in fp32 for 8 steps, held within ``SERVE_FP32_TOL``
+    of no mesh, then in bf16 for 32, held within twice the gap of no mesh
+    in bf16 to no mesh in fp32 (``floor_hold``). (b) qwen3-moe-30b-a3b at
+    full width and ``SERVE_MOE_DEPTH`` layers (flash at each position's 16
+    q heads; each side's dropped assignments): at the capacity factor E /
+    top_k, where no expert drops a token, in fp32 for 8 steps within
+    ``CONTINUITY_TOL`` (a top-k choice at a near tie, which fp32 sums in
+    another order can flip, moves a token's output: 2.2e-3 of the
+    largest logit with no drop at all), the no-mesh side prefilling a
+    data row's prompts at a time (for memory), then in bf16 for 8, held
+    as (a); then at the config's capacity for 32
+    steps, its logits' gap reported beside each side's drops, not held: a
+    capacity-bound MoE is not continuous (in fp32, both sides reckoning
+    capacity per data row, their prefills' drops differed by 3 of 390,144
+    assignments and one row's logits parted by 0.12 of the largest at
+    decode step 6). (c) The reduced qwen3-moe, mamba2 and jamba (one
+    8-layer period) in fp32 on the test's meshes, card against CPU
+    (``serve_mesh_reduced``). Returns the phase's kernel launches."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exact = serve_mesh_full(torch, MESH_STACK, "stacked", arch="mamba2-2.7b",
+                            tag="serve families (a) fp32", dtype="float32",
+                            detail=False, steps=8,
+                            tol=SERVE_FP32_TOL)["no_mesh"]
+    serve_mesh_full(torch, MESH_STACK, "stacked", arch="mamba2-2.7b",
+                    tag="serve families (a)", floor=exact)
+    log(f"phase 18 (a) wall: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    m = get_config("qwen3-moe-30b-a3b").moe
+    moe = dict(arch="qwen3-moe-30b-a3b", layers=SERVE_MOE_DEPTH)
+    no_drops = m.num_experts / m.top_k
+    serve_mesh_full(torch, MESH_STACK, "stacked",
+                    tag="serve families (b) fp32, no drops",
+                    dtype="float32", detail=False, steps=8,
+                    tol=SERVE_FP32_TOL, prefill_rows=2,
+                    capacity_factor=no_drops, routed=True, **moe)
+    serve_mesh_full(torch, MESH_STACK, "stacked", tag="serve families (b)",
+                    tol=None, **moe)
+    log(f"phase 18 (b) wall: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    serve_mesh_reduced(torch, SERVE_FAMILIES_REDUCED, "serve families (c)")
+    log(f"phase 18 (c) wall: {time.perf_counter() - t0:.2f} s")
+    launches = ops.launch_counts()
+    log(f"serve families path kernel launches: {launches}")
+    if not launches["flash_attention"]:
+        raise AssertionError("phase 18: flash never launched")
+    log(f"phase 18 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--timing"]):
-        log("usage: chip_smoke.py [--timing]")
+    if argv not in ([], ["--timing"], ["--phase", "17"], ["--phase", "18"]):
+        log("usage: chip_smoke.py [--timing | --phase {17,18}]")
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3460,6 +3818,11 @@ def main(argv) -> int:
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_config("llama3-8b")
+    if argv[:1] == ["--phase"]:          # one serving-mesh phase alone
+        run = {"17": serve_mesh_phase, "18": serve_mesh_families_phase}
+        torch.cuda.init()
+        log(f"phase {argv[1]} kernel launches: {run[argv[1]](torch)}")
+        return 0
     if argv:                             # --timing: phase 4 alone
         print(json.dumps({"timing": kernel_timing(torch, ops, ref, quant,
                                                   cfg)}), flush=True)
@@ -3582,6 +3945,9 @@ def main(argv) -> int:
     # 17. prefill and decode of a dense decoder on a mesh
     launches["mesh_serve"] = serve_mesh_phase(torch)
 
+    # 18. prefill and decode of the MoE, SSM and hybrid families on a mesh
+    launches["mesh_serve_families"] = serve_mesh_families_phase(torch)
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -3608,7 +3974,9 @@ def main(argv) -> int:
                                 ("15_mesh", launches["mesh"]),
                                 ("16_mesh_families",
                                  launches["mesh_families"]),
-                                ("17_mesh_serve", launches["mesh_serve"]))})
+                                ("17_mesh_serve", launches["mesh_serve"]),
+                                ("18_mesh_serve_families",
+                                 launches["mesh_serve_families"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

@@ -21,13 +21,17 @@ the ``d_ff`` or the experts stay whole on every shard: there every shard
 computes the whole). The SSM's output norm spans the whole ``d_in``: its
 sum of squares is all-reduced over "model" before the division.
 
-``apply_layer_shards_prefill`` and ``apply_layer_shards_decode`` run an
-attention layer with a dense FFN over the mesh in the two serving cells:
-the prefill as ``apply_layer_shards``, returning its k/v as
-``spmd.Placed`` caches (the kv heads gathered over "model", each
-position's slots kept); the decode weight-stationary, on the residual
-stream split over "data" along d, its softmax merged over the caches'
-pieces across the grid.
+``apply_layer_shards_prefill`` and ``apply_layer_shards_decode`` run a
+decoder layer (an attention or SSM mixer, a dense, MoE or no FFN) over
+the mesh in the two serving cells: the prefill as ``apply_layer_shards``,
+returning its caches as ``spmd.Placed`` leaves (k/v with the kv heads
+gathered over "model" and each position's slots kept; the SSM's conv
+inputs and state on each position's channels and heads); the decode
+weight-stationary, on the residual stream split over "data" along d: its
+softmax merged over the caches' pieces across the grid, the SSM's caches
+stepped in place on their pieces, the experts' router and products
+summed over "data" and their combine over "model". ``_ffn_shards`` is
+the FFN of every mode.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ArraySpec, apply_rope, rms_norm,
                                       swiglu)
-from repro_torch.models.moe import moe_ffn, moe_shard
+from repro_torch.models.moe import moe_decode_shards, moe_ffn, moe_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,9 +243,8 @@ def _ssm_scan(cfg, p, x, want_cache=False):
 
 
 def _ssm_gate(y, z):
-    """y (B, S, H, P) as (B, S, d_in), gated by silu(z)."""
-    B, S, d_in = z.shape
-    y = y.reshape(B, S, d_in)
+    """y (..., H, P) as z's shape (..., d_in), gated by silu(z)."""
+    y = y.reshape(z.shape)
     return y * torch.nn.functional.silu(z.float()).to(y.dtype)
 
 
@@ -249,6 +252,26 @@ def _ssm_finish(cfg, p, y, z, x_dtype):
     """Gate y (B, S, H, P) by silu(z), normalise, project out."""
     gated = rms_norm(_ssm_gate(y, z), p["norm_y"], cfg.rms_eps)
     return (gated @ p["out_proj"]).to(x_dtype)
+
+
+def _conv_steps(p, cache, xr, br, cr):
+    """One causal-conv step of each raw input (B, C) over its cache (B,
+    W-1, C), the cache updated in place; the outputs after silu."""
+    out = []
+    for name, raw in (("conv_x", xr), ("conv_b", br), ("conv_c", cr)):
+        o, state = ssm_lib.causal_conv_step(raw, cache[name], p[name])
+        cache[name].copy_(state)
+        out.append(_silu(o))
+    return out
+
+
+def _ssd_step(cfg, p, h_cache, xc, bc, cc, dtr):
+    """One SSD step over the state cache (B, H, P, N), updated in place;
+    y (B, H·P)."""
+    y, h_new = ssm_lib.ssd_decode_step({"x": xc, "b": bc, "c": cc,
+                                        "dt": dtr}, p, cfg.ssm, h_cache)
+    h_cache.copy_(h_new)
+    return y.reshape(xc.shape)
 
 
 def _ffn(cfg, spec, p, x):
@@ -328,17 +351,9 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         x = x + torch.einsum("bhk,hkd->bd", out, p["wo"])
     else:
         z, xr, br, cr, dtr = (t[:, 0] for t in _ssm_proj(p, h))
-        conv = {}
-        for name, raw in (("conv_x", xr), ("conv_b", br), ("conv_c", cr)):
-            out, state = ssm_lib.causal_conv_step(raw, cache[name], p[name])
-            cache[name].copy_(state)
-            conv[name] = _silu(out)
-        y, h_new = ssm_lib.ssd_decode_step(
-            {"x": conv["conv_x"], "b": conv["conv_b"], "c": conv["conv_c"],
-             "dt": dtr}, p, cfg.ssm, cache["h"])
-        cache["h"].copy_(h_new)
-        x = x + _ssm_finish(cfg, p, y.reshape(B, 1, -1), z[:, None],
-                            x.dtype)[:, 0]
+        xc, bc, cc = _conv_steps(p, cache, xr, br, cr)
+        y = _ssd_step(cfg, p, cache["h"], xc, bc, cc, dtr)
+        x = x + _ssm_finish(cfg, p, y[:, None], z[:, None], x.dtype)[:, 0]
     if spec.has_cross:
         h = rms_norm(x[:, None], p["ln_cross"], cfg.rms_eps)
         q = torch.einsum("bsd,dhk->bshk", h, p["cwq"])
@@ -398,6 +413,18 @@ def _ssm_cut_in_heads(p: Dict) -> bool:
     return split(p["w_x"]) and not split(p["w_dt"])
 
 
+def _per_position(p: Dict, n: int, leaf) -> list:
+    """``n`` dicts shaped as ``p`` (nested ``moe`` dict included), the
+    list ``leaf(name, Placed)`` gives a leaf at each position."""
+    out = [dict() for _ in range(n)]
+    for k, v in p.items():
+        parts = (_per_position(v, n, leaf) if isinstance(v, dict)
+                 else leaf(k, v))
+        for d, t in zip(out, parts):
+            d[k] = t
+    return out
+
+
 def shard_weights(cfg: ModelConfig, p: Dict, mesh,
                   pick_kv: bool = True) -> list:
     """Each position's weights of one layer from its ``spmd.Placed``
@@ -411,18 +438,8 @@ def shard_weights(cfg: ModelConfig, p: Dict, mesh,
     Differentiable: the gathers' gradients reduce-scatter back."""
     whole = (set(_SSM_CHANNELS) if "w_x" in p and _ssm_cut_in_heads(p)
              else set())
-
-    def walk(src):
-        out = [dict() for _ in range(mesh.size)]
-        for k, v in src.items():
-            parts = walk(v) if isinstance(v, dict) else \
-                spmd.gathered_over(v, "data", *(("model",) if k in whole
-                                                else ()))
-            for d, t in zip(out, parts):
-                d[k] = t
-        return out
-
-    ws = walk(p)
+    ws = _per_position(p, mesh.size, lambda k, v: spmd.gathered_over(
+        v, "data", *(("model",) if k in whole else ())))
     for pre in ("", "c"):
         if not pick_kv or pre + "wq" not in p:
             continue
@@ -438,17 +455,17 @@ def shard_weights(cfg: ModelConfig, p: Dict, mesh,
     return ws
 
 
-def _ssm_shards(cfg: ModelConfig, mesh, ws: list, xs: list) -> list:
-    """An SSM mixer's residual over the mesh: each position scans its
-    channels and heads; the output norm's fp32 sum of squares and the
-    ``out_proj`` partials are all-reduced over "model" where the channels
-    split (the reference's cast points, the mean's sum in another order)."""
+def _ssm_out_shards(cfg: ModelConfig, mesh, ws: list, gated: list,
+                    xs: list) -> list:
+    """An SSM mixer's residual from each position's gated output
+    (``_ssm_gate``, its channels): where the channels split over "model",
+    the output norm's fp32 sum of squares and the ``out_proj`` partials
+    are all-reduced over "model" (the reference's cast points, the mean's
+    sum in another order)."""
     d_in = cfg.ssm.expand * cfg.d_model
-    scans = [_ssm_scan(cfg, w, x)[:2] for w, x in zip(ws, xs)]
-    if ws[0]["w_x"].shape[1] == d_in:       # every shard holds the whole
-        return [_ssm_finish(cfg, w, y, z, x.dtype)
-                for w, (y, z), x in zip(ws, scans, xs)]
-    gated = [_ssm_gate(y, z) for y, z in scans]
+    if ws[0]["norm_y"].shape[0] == d_in:    # every shard holds the whole
+        return [(rms_norm(g, w["norm_y"], cfg.rms_eps) @ w["out_proj"]
+                 ).to(x.dtype) for w, g, x in zip(ws, gated, xs)]
     sq = spmd.all_reduce([g.float().square().sum(dim=-1, keepdim=True)
                           for g in gated], mesh, "model")
     outs = []
@@ -458,6 +475,17 @@ def _ssm_shards(cfg: ModelConfig, mesh, ws: list, xs: list) -> list:
         outs.append(normed @ w["out_proj"])
     return [o.to(x.dtype) for o, x in zip(spmd.all_reduce(outs, mesh,
                                                           "model"), xs)]
+
+
+def _ssm_shards(cfg: ModelConfig, mesh, ws: list, xs: list,
+                want_cache: bool = False):
+    """An SSM mixer's residual over the mesh: each position scans its
+    channels and heads (``_ssm_out_shards``). With ``want_cache``, also
+    each position's cache of the channels and heads it scanned."""
+    scans = [_ssm_scan(cfg, w, x, want_cache) for w, x in zip(ws, xs)]
+    outs = _ssm_out_shards(cfg, mesh, ws, [_ssm_gate(y, z)
+                                           for y, z, _ in scans], xs)
+    return (outs, [c for _, _, c in scans]) if want_cache else outs
 
 
 def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
@@ -490,19 +518,41 @@ def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
 
 
 def _ffn_shards(cfg: ModelConfig, spec: LayerSpec, mesh, ws: list,
-                xs: list) -> list:
-    """The FFN residual over the mesh: each position's ``d_ff`` columns or
-    experts, the partials all-reduced over "model"."""
+                xs: list, decode: bool = False) -> list:
+    """The FFN residual over the mesh, in every mode: each position's
+    ``d_ff`` columns or experts, the partials all-reduced over "model".
+    Training and the prefill (``ws`` from ``shard_weights``, ``xs[r]``
+    its data shard's (b, S, d)) route each data shard's tokens
+    (``moe_shard``); the decode (``decode``: ``ws`` each position's
+    pieces, ``xs[r]`` its (B, d / D) piece, split over "data" along d)
+    is weight-stationary: ``w_gate``/``w_up`` (and the router) partial
+    sums over "data", ``w_down`` each position's d piece
+    (``moe_decode_shards`` for the experts)."""
     if spec.ffn == "none":
         return xs
-    hs = [rms_norm(x, w["ln2"], cfg.rms_eps) for w, x in zip(ws, xs)]
+    if not decode:
+        hs = [rms_norm(x, w["ln2"], cfg.rms_eps) for w, x in zip(ws, xs)]
+        if spec.ffn == "moe":
+            fs = moe_shard(hs, [w["moe"] for w in ws], cfg.moe, mesh)
+        else:
+            fs = [swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
+                  for w, h in zip(ws, hs)]
+            if ws[0]["w_gate"].shape[1] != cfg.d_ff:
+                fs = spmd.all_reduce(fs, mesh, "model")
+        return [x + f for x, f in zip(xs, fs)]
+    split = xs[0].shape[-1] != cfg.d_model
+    hs = norm_pieces(cfg, mesh, xs, [w["ln2"] for w in ws])
     if spec.ffn == "moe":
-        fs = moe_shard(hs, [w["moe"] for w in ws], cfg.moe, mesh)
-    else:
-        fs = [swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
-              for w, h in zip(ws, hs)]
-        if ws[0]["w_gate"].shape[1] != cfg.d_ff:
-            fs = spmd.all_reduce(fs, mesh, "model")
+        fs = moe_decode_shards(hs, [w["moe"] for w in ws], cfg.moe, mesh,
+                               split)
+        return [x + f for x, f in zip(xs, fs)]
+    g = _contract(mesh, split, hs, ws, "w_gate", "bd,df->bf")
+    u = _contract(mesh, split, hs, ws, "w_up", "bd,df->bf")
+    acts = [torch.nn.functional.silu(a.float()).to(h.dtype) * b
+            for a, b, h in zip(g, u, hs)]
+    fs = [a @ w["w_down"] for a, w in zip(acts, ws)]
+    if ws[0]["w_down"].shape[0] != cfg.d_ff:
+        fs = spmd.all_reduce(fs, mesh, "model")
     return [x + f for x, f in zip(xs, fs)]
 
 
@@ -536,52 +586,92 @@ def _placed_cache(ts: list, aspec: ArraySpec, mesh, rules,
     return spmd.Placed(pieces, spec, shape, mesh, aspec.logical_axes)
 
 
+def _placed_state(ts: list, aspec: ArraySpec, mesh, rules) -> spmd.Placed:
+    """A prefill's SSM cache over the mesh, ``ts[r]`` what position r
+    computed (its data shard's rows; its channels or heads, or all of
+    them), as the cache ``aspec`` laid out under ``rules``: each position
+    keeps its piece, narrowed where it computed the whole of a dim."""
+    from repro_torch.distributed.sharding import pspec_for
+    shape = tuple(aspec.shape)
+    spec = pspec_for(aspec.logical_axes, mesh, rules, shape)
+    pieces = []
+    for r, t in enumerate(ts):
+        for d, (lo, n) in enumerate(spmd.piece_ranges(spec, shape, mesh,
+                                                      r)):
+            if t.shape[d] == n:
+                continue
+            if t.shape[d] != shape[d]:
+                raise ValueError(f"position {r} computed {t.shape[d]} of "
+                                 f"dim {d} of a cache piece of {n}")
+            t = t.narrow(d, lo, n)
+        pieces.append(t.contiguous())
+    return spmd.Placed(pieces, spec, shape, mesh, aspec.logical_axes)
+
+
 def apply_layer_shards_prefill(cfg: ModelConfig, spec: LayerSpec, mesh,
                                ws: list, xs: list, positions: list,
                                cache_specs: Dict[str, ArraySpec], rules
                                ) -> Tuple[list, Dict[str, spmd.Placed]]:
-    """A prefill's attention layer with a dense FFN over the mesh:
-    ``apply_layer_shards`` (each position runs flash on its q heads) that
-    also returns the layer's cache as ``spmd.Placed`` k and v, laid out by
-    ``cache_specs`` (``layer_cache_specs``) under ``rules``
-    (``PREFILL_RULES``: the batch over "data", ``kv_seq`` over "model").
-    ``ws`` from ``shard_weights(..., pick_kv=False)``: each position
-    computes the k/v of every kv head it holds."""
-    window = 0 if spec.is_global else cfg.attn.sliding_window
-    outs, kv = [], {"k": [], "v": []}
-    for r, (w, x, pos) in enumerate(zip(ws, xs, positions)):
-        pick = _kv_pick(cfg, mesh, r, w["wq"].shape[1], w["wk"].shape[1])
-        o, (k, v) = _attn_seq(cfg, spec, w, x, pos, window, pick)
-        outs.append(o)
-        kv["k"].append(k)
-        kv["v"].append(v)
-    if ws[0]["wo"].shape[0] != cfg.num_heads:
-        outs = spmd.all_reduce(outs, mesh, "model")
+    """A prefill's decoder layer over the mesh (an attention or SSM mixer,
+    a dense, MoE or no FFN): ``apply_layer_shards`` that also returns the
+    layer's cache as ``spmd.Placed`` leaves, laid out by ``cache_specs``
+    (``layer_cache_specs``) under ``rules`` (``PREFILL_RULES``: the batch
+    over "data"; ``kv_seq``, the SSM channels and heads over "model").
+    Attention runs flash on each position's q heads and caches the k/v of
+    every kv head it holds (``ws`` from ``shard_weights(...,
+    pick_kv=False)``); an SSM layer caches the conv inputs and the state
+    of the channels and heads each position scanned (all of them where
+    the channels split but the heads do not, ``_ssm_cut_in_heads``)."""
+    if spec.mixer == "attn":
+        window = 0 if spec.is_global else cfg.attn.sliding_window
+        outs, kv = [], {"k": [], "v": []}
+        for r, (w, x, pos) in enumerate(zip(ws, xs, positions)):
+            pick = _kv_pick(cfg, mesh, r, w["wq"].shape[1],
+                            w["wk"].shape[1])
+            o, (k, v) = _attn_seq(cfg, spec, w, x, pos, window, pick)
+            outs.append(o)
+            kv["k"].append(k)
+            kv["v"].append(v)
+        if ws[0]["wo"].shape[0] != cfg.num_heads:
+            outs = spmd.all_reduce(outs, mesh, "model")
+        ring = _is_ring(cfg, spec, cache_specs["k"].shape[1])
+        cache = {name: _placed_cache(kv[name], cache_specs[name], mesh,
+                                     rules, ring) for name in ("k", "v")}
+    else:
+        outs, cs = _ssm_shards(cfg, mesh, ws, xs, want_cache=True)
+        cache = {name: _placed_state([c[name] for c in cs], aspec, mesh,
+                                     rules)
+                 for name, aspec in cache_specs.items()}
     xs = [x + o for x, o in zip(xs, outs)]
-    ring = _is_ring(cfg, spec, cache_specs["k"].shape[1])
-    cache = {name: _placed_cache(kv[name], cache_specs[name], mesh, rules,
-                                 ring) for name in ("k", "v")}
     return _ffn_shards(cfg, spec, mesh, ws, xs), cache
 
 
-def norm_pieces(cfg: ModelConfig, mesh, xs: list, scale: spmd.Placed
-                ) -> list:
+def norm_pieces(cfg: ModelConfig, mesh, xs: list, scales: list) -> list:
     """``rms_norm`` of a residual stream (B, d) split over "data" along d
-    (``xs[r]`` position r's piece): each position's fp32 sum of squares
-    all-reduced over "data", then its piece of the scale."""
+    (``xs[r]`` position r's piece, ``scales[r]`` its copy of the whole
+    scale): each position's fp32 sum of squares all-reduced over "data",
+    then its piece of the scale."""
     d = cfg.d_model
     if xs[0].shape[-1] == d:
-        return [rms_norm(x, s, cfg.rms_eps)
-                for x, s in zip(xs, scale.pieces)]
+        return [rms_norm(x, s, cfg.rms_eps) for x, s in zip(xs, scales)]
     sq = spmd.all_reduce([x.float().square().sum(dim=-1, keepdim=True)
                           for x in xs], mesh, "data")
     out = []
     for r, (x, s) in enumerate(zip(xs, sq)):
         n = x.shape[-1]
-        w = scale.pieces[r].narrow(0, mesh.axis_index(r, "data") * n, n)
+        w = scales[r].narrow(0, mesh.axis_index(r, "data") * n, n)
         y = x.float() * torch.rsqrt(s / d + cfg.rms_eps)
         out.append((y * (1.0 + w.float())).to(x.dtype))
     return out
+
+
+def _contract(mesh, split: bool, hs: list, ws: list, name: str,
+              eq: str) -> list:
+    """Each position's d piece ``hs[r]`` times its ``fsdp`` rows of the
+    weight ``name``: partial sums, all-reduced over "data" where d
+    splits."""
+    parts = [torch.einsum(eq, h, w[name]) for h, w in zip(hs, ws)]
+    return spmd.all_reduce(parts, mesh, "data") if split else parts
 
 
 def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list, ks: list,
@@ -630,31 +720,17 @@ def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list, ks: list,
             for o, q in zip(outs, qs)]
 
 
-def apply_layer_shards_decode(cfg: ModelConfig, spec: LayerSpec, mesh,
-                              p: Dict, xs: list,
-                              cache: Dict[str, spmd.Placed], cache_len: int
-                              ) -> list:
-    """One decode step of an attention layer with a dense FFN over the
-    mesh, weight-stationary (``DECODE_RULES``): ``p`` the layer's
-    ``spmd.Placed`` weights, used as their pieces, never gathered; ``xs[r]``
-    position r's piece (B, d / D) of the residual stream, split over
-    "data" along d and whole in batch; ``cache`` its k/v over the mesh,
-    updated in place. Each position's q/k/v are its d piece times its
-    ``fsdp`` rows of ``wq``/``wk``/``wv``, partial sums all-reduced over
-    "data"; q and the new k/v are gathered over "model" to every head;
-    attention runs over the cache's pieces (``_decode_attn_pieces``);
-    ``wo`` and ``w_down`` give each position's d piece from its heads or
-    ``d_ff`` columns, all-reduced over "model", ``w_gate``/``w_up``
-    partial sums over "data". Returns the new residual pieces."""
+def _attn_decode_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
+                        ws: list, xs: list, cache: Dict[str, spmd.Placed],
+                        cache_len: int, split: bool) -> list:
+    """An attention mixer's decode step over the mesh: q/k/v partial sums
+    over "data", q and the new k/v gathered over "model" to every head,
+    attention over the cache's pieces (``_decode_attn_pieces``), ``wo``
+    each position's d piece from its heads, all-reduced over "model"."""
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    split = xs[0].shape[-1] != cfg.d_model
-
-    def contract(hs, name, eq):
-        parts = [torch.einsum(eq, h, w) for h, w in zip(hs, p[name].pieces)]
-        return spmd.all_reduce(parts, mesh, "data") if split else parts
-
-    hs = norm_pieces(cfg, mesh, xs, p["ln1"])
-    q, k, v = (contract(hs, n, "bd,dhk->bhk") for n in ("wq", "wk", "wv"))
+    hs = norm_pieces(cfg, mesh, xs, [w["ln1"] for w in ws])
+    q, k, v = (_contract(mesh, split, hs, ws, n, "bd,dhk->bhk")
+               for n in ("wq", "wk", "wv"))
     theta = _theta(cfg, spec)
     B = xs[0].shape[0]
     pos = [torch.full((B, 1), int(cache_len), dtype=torch.long, device=d)
@@ -672,20 +748,73 @@ def apply_layer_shards_decode(cfg: ModelConfig, spec: LayerSpec, mesh,
     else:
         slot, vt = int(cache_len), int(cache_len) + 1
     out = _decode_attn_pieces(cfg, mesh, q, k, v, cache, slot, vt)
-    wo = p["wo"].pieces
-    n = wo[0].shape[0]
+    n = ws[0]["wo"].shape[0]
     outs = [torch.einsum("bhk,hkd->bd", o.narrow(
-        1, (mesh.axis_index(r, "model") * n) if n != H else 0, n), w)
-        for r, (o, w) in enumerate(zip(out, wo))]
+        1, (mesh.axis_index(r, "model") * n) if n != H else 0, n), w["wo"])
+        for r, (o, w) in enumerate(zip(out, ws))]
     if n != H:
         outs = spmd.all_reduce(outs, mesh, "model")
+    return outs
+
+
+def _ssm_decode_shards(cfg: ModelConfig, mesh, ws: list, xs: list,
+                       cache: Dict[str, spmd.Placed], split: bool) -> list:
+    """An SSM mixer's decode step over the mesh: the input projections
+    partial sums over "data"; each position's channels and heads through
+    its pieces of the conv caches and the state, updated in place (the
+    ``conv_b``/``conv_c`` copies alike on every position); the gated
+    output norm and ``out_proj`` over "model" (``_ssm_out_shards``).
+    Where the channels split over "model" but the heads do not, each
+    position convolves its channels, the conv outputs are gathered over
+    "model", and every position steps the whole state, its copy, and
+    keeps its channels of the output."""
+    H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    hs = norm_pieces(cfg, mesh, xs, [w["ln1"] for w in ws])
+    z, xr, br, cr, dtr = (_contract(mesh, split, hs, ws, n, "bd,di->bi")
+                          for n in ("w_z", "w_x", "w_b", "w_c", "w_dt"))
+    pieces = [{k: c.pieces[r] for k, c in cache.items()}
+              for r in range(mesh.size)]
+    convs = [_conv_steps(w, c, *t) for w, c, t in zip(
+        ws, pieces, zip(xr, br, cr))]
+    cut = dtr[0].shape[-1] == H and cache["conv_x"].shape[-1] != \
+        z[0].shape[-1]
+    xcs = [c[0] for c in convs]
+    if cut:
+        xcs = spmd.all_gather(xcs, mesh, "model", dim=-1)
+    gated = []
+    for r, (w, c, (_, bc, cc), xc, dt, zz) in enumerate(zip(
+            ws, pieces, convs, xcs, dtr, z)):
+        y = _ssd_step(cfg, w, c["h"], xc, bc, cc, dt)
+        if cut:
+            n = zz.shape[-1]
+            y = y.narrow(-1, mesh.axis_index(r, "model") * n, n)
+        gated.append(_ssm_gate(y, zz))
+    return _ssm_out_shards(cfg, mesh, ws, gated, xs)
+
+
+def apply_layer_shards_decode(cfg: ModelConfig, spec: LayerSpec, mesh,
+                              p: Dict, xs: list,
+                              cache: Dict[str, spmd.Placed], cache_len: int
+                              ) -> list:
+    """One decode step of a decoder layer over the mesh (an attention or
+    SSM mixer, a dense, MoE or no FFN), weight-stationary
+    (``DECODE_RULES``): ``p`` the layer's ``spmd.Placed`` weights, used as
+    their pieces, never gathered; ``xs[r]`` position r's piece (B, d / D)
+    of the residual stream, split over "data" along d and whole in batch;
+    ``cache`` its caches over the mesh, updated in place. Each input
+    projection is a position's d piece times its ``fsdp`` rows, partial
+    sums all-reduced over "data"; each output projection (``wo``,
+    ``out_proj``, ``w_down``, the experts' combine) gives each position's
+    d piece from its heads, channels, ``d_ff`` columns or experts,
+    all-reduced over "model" (``_attn_decode_shards``,
+    ``_ssm_decode_shards``, ``_ffn_shards``). Returns the new residual
+    pieces."""
+    split = xs[0].shape[-1] != cfg.d_model
+    ws = _per_position(p, mesh.size, lambda _, v: v.pieces)
+    if spec.mixer == "attn":
+        outs = _attn_decode_shards(cfg, spec, mesh, ws, xs, cache,
+                                   cache_len, split)
+    else:
+        outs = _ssm_decode_shards(cfg, mesh, ws, xs, cache, split)
     xs = [x + o for x, o in zip(xs, outs)]
-    hs = norm_pieces(cfg, mesh, xs, p["ln2"])
-    g = contract(hs, "w_gate", "bd,df->bf")
-    u = contract(hs, "w_up", "bd,df->bf")
-    acts = [torch.nn.functional.silu(a.float()).to(h.dtype) * b
-            for a, b, h in zip(g, u, hs)]
-    fs = [a @ w for a, w in zip(acts, p["w_down"].pieces)]
-    if p["w_down"].pieces[0].shape[0] != cfg.d_ff:
-        fs = spmd.all_reduce(fs, mesh, "model")
-    return [x + f for x, f in zip(xs, fs)]
+    return _ffn_shards(cfg, spec, mesh, ws, xs, decode=True)

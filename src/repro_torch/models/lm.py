@@ -188,9 +188,10 @@ class LM:
         """batch: tokens (B, S) [+ embeds (B, F, e) or src_embeds (B, F,
         e)]. Positions (and so the decode's ``cache_len``) count a
         frontend's F embeddings first. Returns (last_logits (B, V),
-        caches). With ``mesh`` (a dense decoder config; ``params`` placed
-        by ``spmd``), the logits whole on every position as a list, and
-        caches of ``spmd.Placed`` k and v under ``PREFILL_RULES``."""
+        caches). With ``mesh`` (a decoder-only config without a frontend;
+        ``params`` placed by ``spmd``), the logits whole on every position
+        as a list, and caches of ``spmd.Placed`` leaves under
+        ``PREFILL_RULES``."""
         if mesh is not None:
             return self._prefill_mesh(params, batch, capacity, mesh)
         cfg = self.cfg
@@ -210,8 +211,9 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params, caches, batch, mesh=None):
         """batch: token (B,), cache_len int. Returns (logits (B, V), caches);
-        the caches are updated in place. With ``mesh`` (a dense decoder
-        config; ``params`` placed by ``spmd``, the caches ``spmd.Placed``,
+        the caches are updated in place. With ``mesh`` (a decoder-only
+        config without a frontend; ``params`` placed by ``spmd``, the
+        caches ``spmd.Placed``,
         best under ``DECODE_RULES``: ``caches_for_decode``), the logits
         whole on every position as a list."""
         if mesh is not None:
@@ -424,7 +426,8 @@ class LM:
         """``prefill`` over ``mesh`` under ``PREFILL_RULES``: each data row
         takes its share of the batch (the whole batch where "data" does
         not divide it), the weights gathered over "data" layer by layer
-        (``blocks.shard_weights``), each position's q heads through flash
+        (``blocks.shard_weights``), each position's q heads through flash,
+        its SSM channels and heads, its experts over its data row's tokens
         (``blocks.apply_layer_shards_prefill``); the logits from each
         position's vocabulary shard, gathered over "model" and "data"."""
         cfg = self.cfg
@@ -480,7 +483,7 @@ class LM:
                               strict=True):
             xs = blocks.apply_layer_shards_decode(cfg, spec, mesh, p, xs, c,
                                                   cache_len)
-        hs = blocks.norm_pieces(cfg, mesh, xs, head["final_norm"])
+        hs = blocks.norm_pieces(cfg, mesh, xs, head["final_norm"].pieces)
         zs = [h @ w.T if cfg.tie_embeddings else h @ w for h, w in zip(
             hs, (head["embed"] if cfg.tie_embeddings
                  else head["lm_head"]).pieces)]
@@ -533,9 +536,11 @@ def check_mesh_support(mesh, kind: str = "train",
                        cfg: Optional[ModelConfig] = None) -> None:
     """The meshes the mesh path runs: a mesh of devices over "data" and
     "model"; to train (``kind`` "train"), every family (dense, MoE, SSM,
-    hybrid, encoder-decoder, frontend); to prefill and decode, the dense
-    decoder families: every layer attention with a dense FFN, with no
-    cross-attention, encoder or frontend."""
+    hybrid, encoder-decoder, frontend); to prefill and decode, the
+    decoder-only families without a frontend: attention (full or
+    sliding-window) and SSM mixers, each with a dense, MoE or no FFN
+    (dense, MoE, SSM and hybrid configs). Encoder-decoder and frontend
+    configs wait for ROADMAP.md §1 item 3."""
     if mesh.devices is None:
         raise ValueError(f"{kind} on a mesh needs its devices "
                          f"(launch.mesh.make_mesh)")
@@ -549,12 +554,8 @@ def check_mesh_support(mesh, kind: str = "train",
     if kind not in ("prefill", "decode") or cfg is None:
         raise ValueError(f"check_mesh_support: kind {kind!r} needs a "
                          f"config (train, prefill or decode)")
-    specs = [make_layer_spec(cfg, i) for i in range(cfg.num_layers)]
-    if (cfg.num_encoder_layers or cfg.frontend.kind != "none"
-            or any(sp.mixer != "attn" or sp.ffn != "dense" or sp.has_cross
-                   for sp in specs)):
+    if cfg.num_encoder_layers or cfg.frontend.kind != "none":
         raise NotImplementedError(
-            f"{cfg.name}: {kind} on a mesh runs the dense decoder families "
-            f"(attention layers with a dense FFN); MoE, SSM, hybrid, "
-            f"encoder-decoder and frontend configs wait for ROADMAP.md §1 "
-            f"item 3")
+            f"{cfg.name}: {kind} on a mesh runs the decoder-only families "
+            f"(dense, MoE, SSM, hybrid); encoder-decoder and frontend "
+            f"configs wait for ROADMAP.md §1 item 3")

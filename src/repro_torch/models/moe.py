@@ -25,7 +25,12 @@ to the others' (an all-reduce over "model"). When ``M`` does not divide
 ``E`` the reference takes ``ep = gcd(E, M)`` but keeps every expert on
 every shard and adds nothing, while ``ep`` still divides the capacity:
 ``cap = ceil(T·k/(E·ep)·capacity_factor)``. The port does the same
-(ROADMAP.md §3 logs it as a quirk of the reference).
+(ROADMAP.md §3 logs it as a quirk of the reference). A serving mesh's
+decode step (:func:`moe_decode_shards`, under ``DECODE_RULES``) keeps the
+experts where they lie and the batch whole, so its capacity counts the
+whole batch, as the reference's replicated batch does; d splits over
+"data", and the router's and the expert products' partial sums over it
+are all-reduced instead of gathering the weights.
 """
 from __future__ import annotations
 
@@ -51,9 +56,14 @@ def route(xf: torch.Tensor, router_w: torch.Tensor,
     """The dispatch plan of ``_moe_local`` for xf (T, d); the capacity
     divides the T·k assignments over ``cap_experts`` (the reference's
     ``e_local · ep_size``; all E experts by default)."""
-    T = xf.shape[0]
-    E, k = router_w.shape[1], mcfg.top_k
-    logits = xf.float() @ router_w.float()                  # (T, E)
+    return route_logits(xf.float() @ router_w.float(), mcfg, cap_experts)
+
+
+def route_logits(logits: torch.Tensor, mcfg: MoEConfig,
+                 cap_experts: int = 0) -> Routing:
+    """``route`` from the router's fp32 logits (T, E)."""
+    T, E = logits.shape
+    k = mcfg.top_k
     # a stable descending sort keeps equal logits in index order
     top_vals, top_idx = torch.sort(logits, dim=-1, descending=True,
                                    stable=True)
@@ -63,9 +73,41 @@ def route(xf: torch.Tensor, router_w: torch.Tensor,
                             * mcfg.capacity_factor)), 1)
     # one_hot itself would read the indices back to the host to check them
     onehot = (top_idx.reshape(-1, 1) == torch.arange(
-        E, device=xf.device)).long()                       # (T*k, E)
+        E, device=logits.device)).long()                    # (T*k, E)
     pos = ((onehot.cumsum(dim=0) - onehot) * onehot).sum(dim=-1)
     return Routing(top_idx, weights, pos, pos < cap, cap)
+
+
+def _slots(r: Routing, e_local: int, e_start: int, num_experts: int):
+    """(kept, expert row, slot) of each of the T·k assignments among the
+    ``e_local`` experts from ``e_start``; row ``e_local`` is the trash."""
+    local = r.top_idx.reshape(-1) - e_start
+    keep = r.keep
+    if e_local != num_experts:
+        keep = keep & (local >= 0) & (local < e_local)
+    return keep, torch.where(keep, local, e_local), r.pos.clamp(max=r.cap - 1)
+
+
+def _dispatch(xf: torch.Tensor, slots, e_local: int, cap: int, k: int
+              ) -> torch.Tensor:
+    """The (e_local, cap, d) expert inputs from xf (T, d)."""
+    _, safe_e, slot = slots
+    T, d = xf.shape
+    tok_of = torch.arange(T * k, device=xf.device) // k
+    x_e = xf.new_zeros((e_local + 1, cap, d))
+    x_e[safe_e, slot] = xf[tok_of]
+    return x_e[:e_local]
+
+
+def _combine(y_e: torch.Tensor, slots, r: Routing, T: int) -> torch.Tensor:
+    """The weighted fp32 sum (T, d) of each token's kept expert outputs
+    from y_e (e_local, cap, d)."""
+    keep, safe_e, slot = slots
+    k = r.top_idx.shape[1]
+    y_tk = y_e[safe_e.clamp(max=y_e.shape[0] - 1), slot]    # (T*k, d)
+    y_tk = torch.where(keep[:, None], y_tk, 0)
+    y_tk = y_tk.float() * r.weights.reshape(-1)[:, None]
+    return y_tk.reshape(T, k, -1).sum(dim=1)
 
 
 def _moe_local(xf: torch.Tensor, p: dict, mcfg: MoEConfig,
@@ -73,27 +115,16 @@ def _moe_local(xf: torch.Tensor, p: dict, mcfg: MoEConfig,
     """The combine of xf (T, d) over the experts ``p`` holds, the
     ``e_local`` from ``e_start`` of the router's E (a partial sum when
     they are not all)."""
-    T, d = xf.shape
-    E, k = p["w_gate"].shape[0], mcfg.top_k
+    T = xf.shape[0]
+    E = p["w_gate"].shape[0]
     r = route(xf, p["router"], mcfg, cap_experts=E * ep_size)
-    local = r.top_idx.reshape(-1) - e_start
-    keep = r.keep
-    if E != p["router"].shape[1]:
-        keep = keep & (local >= 0) & (local < E)
-    safe_e = torch.where(keep, local, E)                   # E: the trash row
-    slot = r.pos.clamp(max=r.cap - 1)
-    tok_of = torch.arange(T * k, device=xf.device) // k
-    x_e = xf.new_zeros((E + 1, r.cap, d))
-    x_e[safe_e, slot] = xf[tok_of]
-    x_e = x_e[:E]
+    slots = _slots(r, E, e_start, p["router"].shape[1])
+    x_e = _dispatch(xf, slots, E, r.cap, mcfg.top_k)
     g = torch.bmm(x_e, p["w_gate"])
     u = torch.bmm(x_e, p["w_up"])
     h = torch.nn.functional.silu(g.float()).to(xf.dtype) * u
     y_e = torch.bmm(h, p["w_down"])                         # (E, cap, d)
-    y_tk = y_e[safe_e.clamp(max=E - 1), slot]               # (T*k, d)
-    y_tk = torch.where(keep[:, None], y_tk, 0)
-    y_tk = y_tk.float() * r.weights.reshape(-1)[:, None]
-    return y_tk.reshape(T, k, d).sum(dim=1).to(xf.dtype)
+    return _combine(y_e, slots, r, T).to(xf.dtype)
 
 
 def expert_parallelism(num_experts: int, model: int) -> int:
@@ -124,6 +155,51 @@ def moe_shard(xs, ps, mcfg: MoEConfig, mesh):
     if ps[0]["w_gate"].shape[0] != E:
         outs = spmd.all_reduce(outs, mesh, "model")
     return outs
+
+
+def moe_decode_shards(hs, ps, mcfg: MoEConfig, mesh, split: bool):
+    """One decode step's MoE FFN over the mesh, weight-stationary
+    (``DECODE_RULES``): ``hs[r]`` position r's piece (T, d / D) of the
+    normed tokens, split over "data" along d and whole in T; ``ps[r]`` its
+    pieces of the experts it holds (``w_gate``/``w_up`` (E/M, d / D, f) on
+    their d rows, ``w_down`` (E/M, f, d / D) on its d columns) and of the
+    router (d / D, E). The router's fp32 logits and the ``w_gate``/``w_up``
+    products are partial sums over the d pieces, all-reduced over "data";
+    every position routes the whole batch (its capacity counts all T
+    tokens, as the reference's replicated batch does); ``w_down`` gives
+    each position its d piece of its experts' outputs, whose fp32 combine
+    is all-reduced over "model" where the experts split. ``split``: d is
+    split over "data" (else every piece holds all of it and nothing is
+    summed over "data"). The weights are never gathered. Returns each
+    position's (T, d / D) output."""
+    M = mesh.shape.get("model", 1)
+    E = ps[0]["router"].shape[1]
+    ep = expert_parallelism(E, M)
+    def over_data(parts):
+        return spmd.all_reduce(parts, mesh, "data") if split else parts
+
+    logits = over_data([h.float() @ p["router"].float()
+                        for h, p in zip(hs, ps)])
+    plans, gs, us = [], [], []
+    for r, (h, p, z) in enumerate(zip(hs, ps, logits)):
+        e_local = p["w_gate"].shape[0]
+        e_start = mesh.axis_index(r, "model") * e_local if e_local != E \
+            else 0
+        rt = route_logits(z, mcfg, cap_experts=e_local * ep)
+        slots = _slots(rt, e_local, e_start, E)
+        x_e = _dispatch(h, slots, e_local, rt.cap, mcfg.top_k)
+        gs.append(torch.bmm(x_e, p["w_gate"]))
+        us.append(torch.bmm(x_e, p["w_up"]))
+        plans.append((rt, slots))
+    gs, us = over_data(gs), over_data(us)
+    outs = []
+    for h, p, g, u, (rt, slots) in zip(hs, ps, gs, us, plans):
+        a = torch.nn.functional.silu(g.float()).to(h.dtype) * u
+        outs.append(_combine(torch.bmm(a, p["w_down"]), slots, rt,
+                             h.shape[0]))
+    if ps[0]["w_gate"].shape[0] != E:
+        outs = spmd.all_reduce(outs, mesh, "model")
+    return [o.to(h.dtype) for o, h in zip(outs, hs)]
 
 
 def moe_ffn(x: torch.Tensor, params: dict, mcfg: MoEConfig, *,

@@ -102,7 +102,7 @@ def cpu_mesh(shape):
 
 
 def cfg_of(arch):
-    return serve_cfg(tc, arch, OVER[arch])
+    return serve_cfg(tc, arch, OVER.get(arch, {}))
 
 
 def serve(lm, params, toks, cap, mesh=None):
@@ -204,13 +204,16 @@ def test_mesh_prefill_and_decode_match_no_mesh(arch, shape, cap):
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)])
-@pytest.mark.parametrize("arch", [a for a, _ in SERVE_ARCHS])
+@pytest.mark.parametrize("arch", [a for a, _ in SERVE_ARCHS]
+                         + ["qwen3-moe-30b-a3b", "mamba2-2.7b"])
 def test_placed_bytes_per_position_equal_dryrun(arch, shape):
     """The weights placed under either rule set, the prefill's caches and
     the decode's (after ``caches_for_decode``) hold at each position
     exactly the bytes ``dryrun.tree_bytes_per_device`` counts for the
-    config, the mesh and the rules; the relayout copies what each position
-    lacks, and no more than its decode pieces."""
+    config, the mesh and the rules, for the dense configs, an MoE
+    (qwen3-moe) and an SSM (mamba2, whose caches are the conv inputs and
+    the state); the relayout copies what each position lacks, and no more
+    than its decode pieces."""
     cfg = cfg_of(arch)
     lm = LM(cfg)
     mesh = cpu_mesh(shape)
@@ -228,42 +231,62 @@ def test_placed_bytes_per_position_equal_dryrun(arch, shape):
     _, caches = lm.prefill(placed, {"tokens": toks}, 64, mesh=mesh)
     structs = specs_to_structs(cache_specs)
     axes = specs_logical_axes(cache_specs)
+    want = {rules: dryrun.tree_bytes_per_device(structs, axes, mesh, rules)
+            for rules in (PREFILL_RULES, DECODE_RULES)}
     for rules in (PREFILL_RULES, DECODE_RULES):
-        want = dryrun.tree_bytes_per_device(structs, axes, mesh, rules)
-        assert spmd.bytes_per_position(caches) == [want] * mesh.size, rules
+        assert spmd.bytes_per_position(caches) == [want[rules]] * \
+            mesh.size, rules
         if rules is PREFILL_RULES:
             spmd.reset_collective_bytes()
             caches = lm.caches_for_decode(caches)
             moved = [spmd.moved_bytes(r) for r in range(mesh.size)]
             # on (1, 4) both layouts cut the slots alike: nothing moves
             assert (max(moved) > 0) == (shape != (1, 4)), moved
-            assert max(moved) <= want, moved
+            assert max(moved) <= want[DECODE_RULES], moved
 
 
 def test_decode_step_collective_bytes():
-    """One decode step of the reduced llama3-8b (fp32) on (2, 2) with
-    batch 4 counts at every position the bytes that
-    ``chip_smoke.serve_mesh_decode_bytes`` derives from the shapes: 23,696 all-reduced (5,280 a layer: 16 + 512
-    + 256 + 256 for the norm and q/k/v, 64 + 64 + 1,024 for the softmax's
-    merge, 512 + 16 + 1,024 + 1,024 + 512 for ``wo`` and the FFN; the head
-    512 + 16 + 2,048) and 12,288 all-gathered (2,048 a layer; the logits
-    4,096)."""
-    cfg = cfg_of("llama3-8b")
-    lm = LM(cfg)
+    """One decode step on (2, 2) with batch 4 counts at every position the
+    bytes that ``chip_smoke.serve_mesh_decode_bytes`` derives from the
+    shapes, for three reduced configs in fp32 (4 layers each; the head
+    all-reduces 512 + 16 + 2,048 and all-gathers the logits' 4,096):
+
+    - llama3-8b: 23,696 all-reduced (5,280 a layer: 16 + 512 + 256 + 256
+      for the norm and q/k/v, 64 + 64 + 1,024 for the softmax's merge,
+      512 + 16 + 1,024 + 1,024 + 512 for ``wo`` and the FFN) and 12,288
+      all-gathered (2,048 a layer);
+    - qwen3-moe (4 experts, top-2, capacity 3 for the whole batch of 4):
+      40,336 all-reduced (9,440 a layer: the attention's 2,704 as
+      llama3's, then 16 for the norm, 64 for the fp32 router logits,
+      3,072 + 3,072 for the two experts' w_gate and w_up products (2, 3,
+      128), 512 for the fp32 combine) and 12,288 all-gathered;
+    - mamba2 (d_in 128, 16 heads, state 16; tied embeddings): 15,504
+      all-reduced (3,232 a layer: 16 for the norm, 1,024 + 1,024 for z
+      and x, 256 + 256 for B and C, 128 for dt; 16 for the gated norm's
+      sum of squares and 512 for ``out_proj``) and 4,096 all-gathered."""
     mesh = cpu_mesh((2, 2))
-    params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    placed = spmd.place_tree(params, lm.param_axes(), mesh, DECODE_RULES)
-    caches = [{k: spmd.zeros(s.shape, torch.float32, s.logical_axes, mesh,
-                             DECODE_RULES) for k, s in layer.items()}
-              for layer in lm.cache_specs(SERVE_B, 64)]
-    spmd.reset_collective_bytes()
-    lm.decode_step(placed, caches, {"token": torch.arange(SERVE_B),
-                                    "cache_len": 31}, mesh=mesh)
-    want = chip_smoke.serve_mesh_decode_bytes(cfg, 2, 2, SERVE_B)
-    assert want == {"all-reduce": 23696, "all-gather": 12288,
-                    "reduce-scatter": 0}
-    for r in range(mesh.size):
-        assert spmd.collective_bytes(r) == want, r
+    for arch, want in (
+            ("llama3-8b", {"all-reduce": 23696, "all-gather": 12288,
+                           "reduce-scatter": 0}),
+            ("qwen3-moe-30b-a3b", {"all-reduce": 40336, "all-gather": 12288,
+                                   "reduce-scatter": 0}),
+            ("mamba2-2.7b", {"all-reduce": 15504, "all-gather": 4096,
+                             "reduce-scatter": 0})):
+        cfg = cfg_of(arch)
+        lm = LM(cfg)
+        params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        placed = spmd.place_tree(params, lm.param_axes(), mesh, DECODE_RULES)
+        caches = [{k: spmd.zeros(s.shape, torch.float32, s.logical_axes,
+                                 mesh, DECODE_RULES)
+                   for k, s in layer.items()}
+                  for layer in lm.cache_specs(SERVE_B, 64)]
+        spmd.reset_collective_bytes()
+        lm.decode_step(placed, caches, {"token": torch.arange(SERVE_B),
+                                        "cache_len": 31}, mesh=mesh)
+        assert chip_smoke.serve_mesh_decode_bytes(cfg, 2, 2, SERVE_B) == \
+            want, arch
+        for r in range(mesh.size):
+            assert spmd.collective_bytes(r) == want, (arch, r)
 
 
 def test_collectives_over_the_whole_grid():
@@ -393,15 +416,15 @@ def test_partial_decode_attention(dtype):
             torch.testing.assert_close(got, one, atol=1e-6, rtol=1e-6)
 
 
-REFUSED = ("qwen3-moe-30b-a3b", "mamba2-2.7b", "jamba-1.5-large-398b",
-           "paligemma-3b", "seamless-m4t-medium")
+REFUSED = ("paligemma-3b", "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("arch", REFUSED)
 def test_other_families_refuse_the_serving_mesh(arch):
-    """MoE, SSM, hybrid, frontend and encoder-decoder configs raise on the
-    prefill and decode mesh paths, naming the ROADMAP item that ports
-    them."""
+    """Frontend and encoder-decoder configs raise on the prefill and
+    decode mesh paths, naming the ROADMAP item that ports them (the MoE,
+    SSM and hybrid families run there:
+    ``tests/test_torch_mesh_serve_families.py``)."""
     cfg = dataclasses.replace(tc.get_config(arch).reduced(), dtype="float32")
     lm = LM(cfg)
     mesh = cpu_mesh((2, 2))
@@ -417,11 +440,15 @@ def test_inspector_traces_a_mesh_prefill(monkeypatch, capsys):
     """``inspect_hlo --mesh 2,2`` on a prefill cell of the reduced
     gemma3-1b: flash at each position's heads, the caches built, four
     position lines with their all-gathers (the heads gathered for the
-    caches, the logits) and all-reduces."""
+    caches, the logits) and all-reduces; and on a decode cell of the
+    reduced qwen3-moe (one layer, the inspector's one period): four
+    position lines, each with the bytes ``serve_mesh_decode_bytes``
+    derives from the shapes."""
     orig = tc.get_config
     monkeypatch.setattr(tc, "get_config", lambda a: orig(a).reduced())
     monkeypatch.setattr(tc, "SHAPES",
-                        {"p": tc.ShapeConfig("p", 32, 4, "prefill")})
+                        {"p": tc.ShapeConfig("p", 32, 4, "prefill"),
+                         "d": tc.ShapeConfig("d", 32, 4, "decode")})
     assert inspect_hlo.main(["--arch", "gemma3-1b", "--shape", "p",
                              "--mesh", "2,2", "--device", "cpu", "--top",
                              "5"]) == 0
@@ -432,3 +459,15 @@ def test_inspector_traces_a_mesh_prefill(monkeypatch, capsys):
     assert len(coll) == 4
     assert all("'all-reduce': 0," not in ln and "'all-gather': 0," not in ln
                for ln in coll)
+    assert inspect_hlo.main(["--arch", "qwen3-moe-30b-a3b", "--shape", "d",
+                             "--mesh", "2,2", "--device", "cpu", "--top",
+                             "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("# qwen3-moe-30b-a3b d periods=1")
+    cfg = dryrun.depth_variant(tc.get_config("qwen3-moe-30b-a3b"), 1, 1)
+    want = chip_smoke.serve_mesh_decode_bytes(cfg, 2, 2, 4)
+    assert want == {"all-reduce": 6896, "all-gather": 3072,
+                    "reduce-scatter": 0}
+    coll = [ln for ln in out if ln.startswith("# position")]
+    assert len(coll) == 4
+    assert all(f"collective bytes {want}," in ln for ln in coll), coll

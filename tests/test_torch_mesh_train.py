@@ -427,10 +427,12 @@ def test_launcher_resume_onto_another_mesh(tmp_path, capsys):
 def test_other_families_on_a_mesh_name_item_3():
     """Every family trains on a (data, model) mesh
     (``tests/test_torch_mesh_families.py``), and the dense decoder
-    families prefill and decode on one (``tests/test_torch_mesh_serve.py``);
-    what still raises names the ROADMAP item that ports it: a mesh axis
-    beside "data" and "model", for each of the other families, and the
-    inspector's ``--mesh`` on an SSM config's prefill cell."""
+    families prefill and decode on one (``tests/test_torch_mesh_serve.py``),
+    and so do the MoE, SSM and hybrid families
+    (``tests/test_torch_mesh_serve_families.py``); what still raises names
+    the ROADMAP item that ports it: a mesh axis beside "data" and "model",
+    for each of the other families, and the inspector's ``--mesh`` on a
+    frontend config's prefill cell."""
     mesh = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
     for arch in ("mamba2-2.7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium", "paligemma-3b"):
@@ -438,7 +440,7 @@ def test_other_families_on_a_mesh_name_item_3():
             steplib.make_train_step(LM(cfg_of(arch)), adamw.AdamWConfig(),
                                     mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 3"):
-        inspect_hlo.main(["--arch", "mamba2-2.7b", "--shape", "prefill_32k",
+        inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "prefill_32k",
                           "--mesh", "2,2", "--device", "cpu"])
 
 
@@ -480,9 +482,17 @@ def test_inspector_traces_a_mesh_step(monkeypatch, capsys):
     assert len(coll) == 4
     assert all("'all-reduce'" in ln and "'all-reduce': 0," not in ln
                for ln in coll)
-    # an SSM's decode cell does not, and names the item that ports it
+    # so does an SSM's; a frontend config's does not, and names the item
+    # that ports it
+    assert inspect_hlo.main(["--arch", "mamba2-2.7b", "--shape", "d",
+                             "--mesh", "2,2", "--device", "cpu", "--top",
+                             "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    coll = [ln for ln in out if ln.startswith("# position")]
+    assert len(coll) == 4
+    assert all("'all-reduce': 0," not in ln for ln in coll)
     with pytest.raises(NotImplementedError, match="item 3"):
-        inspect_hlo.main(["--arch", "mamba2-2.7b", "--shape", "d", "--mesh",
+        inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "d", "--mesh",
                           "2,2", "--device", "cpu"])
 
 

@@ -1,6 +1,7 @@
 """The reference's runs on a (data, model) mesh, for the port's mesh tests
 (``tests/test_torch_moe_ep.py``, ``tests/test_torch_mesh_train.py``,
-``tests/test_torch_mesh_families.py``, ``tests/test_torch_mesh_serve.py``).
+``tests/test_torch_mesh_families.py``, ``tests/test_torch_mesh_serve.py``,
+``tests/test_torch_mesh_serve_families.py``).
 
 Run in a process of its own, with four XLA host devices forced before jax
 loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
@@ -9,6 +10,7 @@ loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
     python tests/torch_mesh_ref.py train OUT.pkl {float32,int8}
     python tests/torch_mesh_ref.py families OUT.pkl
     python tests/torch_mesh_ref.py serve OUT.pkl
+    python tests/torch_mesh_ref.py serve_families OUT.pkl
 
 It pickles numpy trees. The mesh is a ``jax.sharding.Mesh`` over the
 devices, whose axes are Auto: the reference's sharding constraints run
@@ -52,6 +54,26 @@ FAMILY_CASES = (("mamba2-2.7b", (2, 2), {}),
 SERVE_ARCHS = (("llama3-8b", {}), ("gemma3-1b", {"num_layers": 6}))
 SERVE_CASES = (((2, 2), 64), ((1, 4), 64), ((4, 1), 64), ((2, 2), 62))
 SERVE_B, SERVE_PROMPT, SERVE_STEPS = 4, 28, 6
+
+
+# prefill and decode of the MoE, SSM and hybrid families: reduced configs
+# in fp32 with SERVE_B, SERVE_PROMPT and SERVE_STEPS; qwen3-moe on (2, 2)
+# and (1, 4), mamba2 on (2, 2) and on (1, 2) with expand 3, head_dim 64
+# (d_in 192 splits over "model", its 3 heads do not), jamba at one whole
+# period on (2, 2) at capacity 62 (its attention layer's decode cache
+# keeps its slots whole: four pieces do not divide them)
+SERVE_FAMILY_CASES = (("qwen3-moe-30b-a3b", (2, 2), 64, {}),
+                      ("qwen3-moe-30b-a3b", (1, 4), 64, {}),
+                      ("mamba2-2.7b", (2, 2), 64, {}),
+                      ("mamba2-2.7b", (1, 2), 64,
+                       {"ssm": dict(expand=3, head_dim=64)}),
+                      ("jamba-1.5-large-398b", (2, 2), 62,
+                       {"num_layers": 8}))
+
+
+def serve_family_name(arch, shape, cap, over):
+    tag = "+ssm" if "ssm" in over else ""
+    return f"{arch}{tag}@{serve_case_name(shape, cap)}"
 
 
 def serve_case_name(shape, cap):
@@ -231,6 +253,71 @@ def family_runs():
     return out
 
 
+def _serve_case(lm, params, toks, shape, cap):
+    """One prefill under ``PREFILL_RULES`` and ``SERVE_STEPS`` decode
+    steps under ``DECODE_RULES`` on ``auto_mesh(shape)``: the prefill's
+    logits and caches, each step's logits, the last caches; and the first
+    line of the error the ``shard_map`` replication check raised, where it
+    did (the run then repeats without the check, which changes no
+    value)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from repro.distributed.sharding import (DECODE_RULES, PREFILL_RULES,
+                                            pspec_for, sharding_ctx)
+    from repro.launch.dryrun import _axes_leaf
+    from repro.models.common import specs_logical_axes
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    mesh = auto_mesh(shape)
+
+    def shardings(axes, rules):
+        return jax.tree.map(lambda a: NamedSharding(
+            mesh, pspec_for(a[0] or (), mesh, rules, a[1])),
+            axes, is_leaf=_axes_leaf)
+    cache_axes = specs_logical_axes(lm.cache_specs(SERVE_B, cap))
+
+    def run():
+        with sharding_ctx(mesh, PREFILL_RULES):
+            prefill = jax.jit(
+                lambda p, b: lm.prefill(p, b, cap),
+                in_shardings=(shardings(lm.param_axes(), PREFILL_RULES),
+                              shardings({"tokens": (("batch", None), (
+                                  SERVE_B, SERVE_PROMPT))},
+                                  PREFILL_RULES)))
+            logits, caches = prefill(
+                params, {"tokens": jnp.asarray(toks[:, :SERVE_PROMPT])})
+        case = {"prefill": np.asarray(logits),
+                "prefill_caches": to_np(caches), "decode": []}
+        with sharding_ctx(mesh, DECODE_RULES):
+            step = jax.jit(lm.decode_step, in_shardings=(
+                shardings(lm.param_axes(), DECODE_RULES),
+                shardings(cache_axes, DECODE_RULES),
+                shardings({"token": (("batch",), (SERVE_B,)),
+                           "cache_len": ((), ())}, DECODE_RULES)))
+            caches = jax.device_put(caches,
+                                    shardings(cache_axes, DECODE_RULES))
+            for i in range(SERVE_STEPS):
+                logits, caches = step(params, caches, {
+                    "token": jnp.asarray(toks[:, SERVE_PROMPT + i]),
+                    "cache_len": jnp.asarray(SERVE_PROMPT + i,
+                                             jnp.int32)})
+                case["decode"].append(np.asarray(logits))
+        case["decode_caches"] = to_np(caches)
+        return case
+
+    try:
+        case = run()
+        case["raised"] = None
+    except ValueError as e:
+        restore = _unchecked_shard_map()
+        try:
+            case = run()
+        finally:
+            restore()
+        case["raised"] = str(e).splitlines()[0]
+    return case
+
+
 def serve_runs():
     """The reference's jitted ``lm.prefill`` under ``sharding_ctx(mesh,
     PREFILL_RULES)`` and ``SERVE_STEPS`` ``lm.decode_step``s under
@@ -238,13 +325,7 @@ def serve_runs():
     ``repro.launch.inspect_hlo`` lays them, the prefill's caches moved to
     the decode's layout by ``device_put``; ``PRNGKey(0)`` weights."""
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding
     import repro.configs as rc
-    from repro.distributed.sharding import (DECODE_RULES, PREFILL_RULES,
-                                            pspec_for, sharding_ctx)
-    from repro.launch.dryrun import _axes_leaf
-    from repro.models.common import specs_logical_axes
     from repro.models.lm import LM
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     out = {}
@@ -255,40 +336,28 @@ def serve_runs():
         toks = serve_tokens(cfg)
         res = out[arch] = {"params": to_np(params), "tokens": toks}
         for shape, cap in SERVE_CASES:
-            mesh = auto_mesh(shape)
-
-            def shardings(axes, rules):
-                return jax.tree.map(lambda a: NamedSharding(
-                    mesh, pspec_for(a[0] or (), mesh, rules, a[1])),
-                    axes, is_leaf=_axes_leaf)
-            cache_axes = specs_logical_axes(lm.cache_specs(SERVE_B, cap))
-            with sharding_ctx(mesh, PREFILL_RULES):
-                prefill = jax.jit(
-                    lambda p, b: lm.prefill(p, b, cap),
-                    in_shardings=(shardings(lm.param_axes(), PREFILL_RULES),
-                                  shardings({"tokens": (("batch", None), (
-                                      SERVE_B, SERVE_PROMPT))},
-                                      PREFILL_RULES)))
-                logits, caches = prefill(
-                    params, {"tokens": jnp.asarray(toks[:, :SERVE_PROMPT])})
-            case = {"prefill": np.asarray(logits),
-                    "prefill_caches": to_np(caches), "decode": []}
-            with sharding_ctx(mesh, DECODE_RULES):
-                step = jax.jit(lm.decode_step, in_shardings=(
-                    shardings(lm.param_axes(), DECODE_RULES),
-                    shardings(cache_axes, DECODE_RULES),
-                    shardings({"token": (("batch",), (SERVE_B,)),
-                               "cache_len": ((), ())}, DECODE_RULES)))
-                caches = jax.device_put(caches,
-                                        shardings(cache_axes, DECODE_RULES))
-                for i in range(SERVE_STEPS):
-                    logits, caches = step(params, caches, {
-                        "token": jnp.asarray(toks[:, SERVE_PROMPT + i]),
-                        "cache_len": jnp.asarray(SERVE_PROMPT + i,
-                                                 jnp.int32)})
-                    case["decode"].append(np.asarray(logits))
-            case["decode_caches"] = to_np(caches)
+            case = _serve_case(lm, params, toks, shape, cap)
+            assert case.pop("raised") is None
             res[serve_case_name(shape, cap)] = case
+    return out
+
+
+def serve_family_runs():
+    """``serve_runs`` for ``SERVE_FAMILY_CASES`` (the MoE ``shard_map``
+    runs inside the jitted steps), each from ``PRNGKey(0)`` weights."""
+    import jax
+    import repro.configs as rc
+    from repro.models.lm import LM
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    out = {}
+    for arch, shape, cap, over in SERVE_FAMILY_CASES:
+        cfg = family_cfg(rc, arch, over)
+        lm = LM(cfg)
+        params = lm.init(jax.random.PRNGKey(0))
+        toks = serve_tokens(cfg)
+        case = _serve_case(lm, params, toks, shape, cap)
+        case.update(params=to_np(params), tokens=toks)
+        out[serve_family_name(arch, shape, cap, over)] = case
     return out
 
 
@@ -296,6 +365,7 @@ if __name__ == "__main__":
     what, path = sys.argv[1], sys.argv[2]
     res = (moe_runs() if what == "moe" else family_runs()
            if what == "families" else serve_runs() if what == "serve"
+           else serve_family_runs() if what == "serve_families"
            else train_runs(sys.argv[3:]))
     with open(path, "wb") as fh:
         pickle.dump(res, fh)
