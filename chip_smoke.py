@@ -23,8 +23,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    attention (both modes) and flash at a tensor-parallel shard's heads,
    llama3-8b's tp=2 (16/4/128) and tp=8 (4/1/128); flash at phase 17's
    prefill shards (llama3-8b 16/4/128 over 1016 tokens, the reduced
-   gemma3-1b 2/1/16 under its 32-token window) and phase 18's
-   (qwen3-moe-30b-a3b 16/2/128 over 1016 tokens);
+   gemma3-1b 2/1/16 under its 32-token window), phase 18's
+   (qwen3-moe-30b-a3b 16/2/128 over 1016 tokens) and phase 19's
+   (paligemma-3b 4/1/256 causal over 1016 positions, seamless-m4t's
+   encoder 8/8/64 non-causal over 1024 frames and its cross-attention of
+   1016 tokens over 1024 frames);
 4. timing: each kernel at main-path shapes (CUDA events, median after
    warm-up) beside its bound, its plain version and a library yardstick;
    paged attention also at the main path's decode batch (B=8, ctx 1024,
@@ -98,7 +101,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k --mesh
    both``, each of which must exit 0;
 14. tensor parallelism (target 90 s): (a) llama3-8b at full width in
-   bf16, cut to ``TP_DEPTH`` (8) of its 32 layers, at tp=1 and at tp=2
+   bf16, cut to ``TP_DEPTH`` (4) of its 32 layers, at tp=1 and at tp=2
    with both shards on the card (``device=["cuda:0", "cuda:0"]``), phase
    5's prompts and seed, 1024 and 119 HBM blocks, bf16 and int8 KV: run
    (b) rotates, a shard holds and moves half the bytes, each shard's paged
@@ -138,8 +141,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    256);
 16. the SSM, hybrid, frontend and encoder-decoder families on a mesh
    (target 90 s; cell S11), four shards stacked on the card: (a)
-   mamba2-2.7b at full width and 32 of its 64 layers (d_in 5120, 80
-   heads, 40 a model shard; phase 18 serves all 64) through the launcher
+   mamba2-2.7b at full width and ``MESH_FAMILY_DEPTH`` (16) of its 64
+   layers (d_in 5120, 80 heads, 40 a model shard; phase 18 serves all 64)
+   through the launcher
    with no mesh and with ``--mesh 2,2 --device
    cuda:0,cuda:0,cuda:0,cuda:0``, seeded bf16 weights,
    ``SyntheticPacked`` seed 0, 4 x 1024 in 2 microbatches, int8 moments,
@@ -202,7 +206,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    drops (capacity makes the MoE discontinuous); (c) the reduced
    qwen3-moe on (2, 2) and (1, 4), mamba2 on (2, 2) and on (1, 2) with 3
    heads of 64, jamba at one 8-layer period on (2, 2) at capacity 62, in
-   fp32 on the card against the CPU (1e-5 relative).
+   fp32 on the card against the CPU (1e-5 relative);
+19. prefill and decode of the frontend and encoder-decoder families on a
+   mesh (cell S14), each as phase 17 (a) at full width and depth: (a)
+   paligemma-3b (256 image embeddings, numpy seed 13, ahead of 760
+   tokens: 1,016 positions; 4 q heads and the one kv head a position),
+   (b) seamless-m4t-medium (1,016 tokens over 1,024 source frames; its
+   cross caches over the frames, read by every decode step), each in fp32
+   for 8 steps (within ``SERVE_FP32_TOL`` of no mesh), then in bf16 for
+   32 (within ``CONTINUITY_TOL``), flash launched once a position in
+   every self-, encoder and cross-attention layer of the prefill
+   (counted); (c) the reduced paligemma and seamless (and seamless over 6
+   frames, whose cross caches keep their frames whole in the decode) in
+   fp32 on (2, 2), (1, 4) and (4, 1) on the card against the CPU (1e-5
+   relative).
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -212,12 +229,15 @@ JAX package.
 ``python3 chip_smoke.py --timing`` runs phases 1, 2 and 4 only and prints
 phase 4's times as one JSON line ``{"timing": {...}}``: the quick way to
 compare two trees' kernels on one card (run each tree's copy of the
-script in turn, within one machine). ``--phase 17`` or ``--phase 18``
-runs phases 1, 2 and that serving-mesh phase alone.
+script in turn, within one machine). ``--phase N`` (N in 14, 16, 17,
+18, 19) runs phases 1, 2 and phase N alone; ``scripts/phase_budget.py``
+times the phases whose depth was cut, before and after the cut, beside
+the last phase added.
 """
 from __future__ import annotations
 
 import dataclasses
+import contextlib
 import gc
 import itertools
 import json
@@ -277,21 +297,40 @@ def kernel_ms(torch, fn, family, calls=20):
     return kernel_trace(torch, fn, family, "a call", calls)[0]
 
 
+# host seconds a device trace waits after it starts and before it stops
+TRACE_PAD_S = 0.01
+
+
+@contextlib.contextmanager
+def device_profile(torch, host=False):
+    """A torch.profiler trace of CUDA activity (and host operators where
+    ``host``) whose body runs between two host sleeps of TRACE_PAD_S, the
+    device synchronised before the second. A trace of a millisecond or
+    less now and then holds no device event at all, not even a kernel
+    launched after the timed ones; padded, none came back empty
+    (``scripts/trace_window.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
 def kernel_trace(torch, fn, family, what, calls=20):
     """(device milliseconds per call of ``fn``'s own kernels, traces
-    taken): ``family`` in KERNEL_FAMILIES, summed from a torch.profiler
+    taken): ``family`` in KERNEL_FAMILIES, summed from a ``device_profile``
     trace. Where a call's kernel is shorter than its host dispatch,
     ``time_ms``'s back-to-back events measure the host's launch rate
-    instead of the kernel. A trace has once come back without the family's
-    kernels (phase 4's D = 256 flash row, cause not found): each such trace
-    is logged with the device events it did hold, and the call traces
-    again, three times at most; the kernels JSON reports the traces each
-    row took (``trace_attempts``)."""
-    from torch.profiler import ProfilerActivity, profile
+    instead of the kernel. A trace without the family's kernels is logged
+    (on stderr too) with the device events it did hold, and the call
+    traces again, three times at most; the kernels JSON reports the traces
+    each row took (``trace_attempts``)."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, 4):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile(torch) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -300,9 +339,11 @@ def kernel_trace(torch, fn, family, what, calls=20):
         if ms > 0:
             return ms, attempt
         names = device_event_names(prof)
-        log(f"kernel_ms: trace {attempt} of {what} ({calls} calls) holds no "
-            f"{family} kernel: {len(names)} device events, by family "
-            f"{by_family}, first names {names[:4]}")
+        msg = (f"kernel_ms: trace {attempt} of {what} ({calls} calls) holds "
+               f"no {family} kernel: {len(names)} device events, by family "
+               f"{by_family}, first names {names[:4]}")
+        log(msg)
+        print(msg, file=sys.stderr, flush=True)
     raise AssertionError(f"no {family} kernel in three traces of {what}")
 
 
@@ -503,7 +544,8 @@ def mesh_shard_checks(torch, ops, ref, errs, dev="cuda"):
     row; phase 16's (2, 2) shards of paligemma-3b (4/1/256, causal over
     1024) and seamless-m4t-medium (8/8/64: the non-causal encoder over 1024
     frames, the cross-attention of 1024 tokens over 1024 frames), one row;
-    in bf16 and fp32. And ``FlashAttention``'s gradient (the kernel
+    in bf16 and fp32; phase 17's, 18's and 19's prefill shards (two rows
+    a position) likewise. And ``FlashAttention``'s gradient (the kernel
     forward, the plain backward) at gemma3-1b's and seamless's encoder
     shard heads against autograd through the plain version in fp32 (on
     the same inputs, upcast)."""
@@ -539,6 +581,27 @@ def mesh_shard_checks(torch, ops, ref, errs, dev="cuda"):
             torch.cuda.synchronize()
             check("flash_attention", dname, f"{label} H/Hkv/D={H}/{Hkv}/{D},"
                   f" B=1 Sq={Sq} Skv={S} "
+                  f"{'causal' if causal else 'non-causal'}",
+                  got, want, TOL[dname], errs)
+    # phase 19's prefill shards on (2, 2), one data row's 2 rows:
+    # paligemma-3b over its 256 embeddings and 760 tokens, seamless's
+    # encoder over 1024 frames and its cross-attention of 1016 tokens
+    for label, H, Hkv, D, Sq, Skv, causal in (
+            ("paligemma-3b (2, 2) prefill shard", 4, 1, 256, 1016, 1016,
+             True),
+            ("seamless-m4t-medium (2, 2) prefill encoder shard", 8, 8, 64,
+             1024, 1024, False),
+            ("seamless-m4t-medium (2, 2) prefill cross-attention shard", 8,
+             8, 64, 1016, 1024, False)):
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q = torch.randn((2, Sq, H, D), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((2, Skv, Hkv, D), generator=g,
+                                device=dev).to(dt) for _ in range(2))
+            got = ops.flash_attention(q, k, v, causal=causal, force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check("flash_attention", dname, f"{label} H/Hkv/D={H}/{Hkv}/{D},"
+                  f" B=2 Sq={Sq} Skv={Skv} "
                   f"{'causal' if causal else 'non-causal'}",
                   got, want, TOL[dname], errs)
     # phase 17's prefill shards on (2, 2), one data row's 2 prompts: the
@@ -883,8 +946,7 @@ def kernel_timing(torch, ops, ref, quant, cfg, dev="cuda"):
     out["flash_attention@train"]["backward_bound_ms"] = max(
         (3 * h + 4 * hkv) * Bt * St * d * e / HBM_BYTES_S,
         10 * pairs * h * d / PEAK_BF16_FLOPS) * 1e3
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         for _ in range(5):
             flash_attention_backward(q, k, v, dout, causal=True, window=win,
                                      q_offset=0)
@@ -1801,8 +1863,7 @@ def train_phase(torch):
         state, m = step_fn(state, b)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / 3
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         t0 = time.perf_counter()
         state, m = step_fn(state, batches[4])
         torch.cuda.synchronize()
@@ -1813,8 +1874,7 @@ def train_phase(torch):
     n_dev = sum(e.device_type() == DeviceType.CUDA
                 for e in prof.profiler.kineto_results.events())
     # the same step again with host events, for device time by operator
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_ops:
+    with device_profile(torch, host=True) as prof_ops:
         state, m = step_fn(state, batches[4])
         torch.cuda.synchronize()
     by_op = {e.key: (e.self_device_time_total / 1e3,
@@ -1907,7 +1967,6 @@ def roofline_decode(torch, cfg, steps=3, device="cuda"):
     (``flops_and_bytes`` over this iteration's contexts, a launch a
     layer); bytes: the weights once, the K/V the kernel reads, the fp32
     logits (``roofline.analytic_memory_bytes``)."""
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import GH200, ServingConfig, ShapeConfig
     from repro_torch.core.types import RequestState, SamplingParams
@@ -1934,7 +1993,7 @@ def roofline_decode(torch, cfg, steps=3, device="cuda"):
     eng.step()                                   # a decode-only warm-up
     torch.cuda.synchronize()
     batches, chunks = ex.decode_batches, ex.prefill_chunks_run
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -2261,10 +2320,11 @@ def tp_reduced(torch, cfg, mesh_of, label):
         raise AssertionError("int8 shard scales are not the pool's slices")
 
 
-# phase 14 (a)'s depth: 8 of llama3-8b's 32 layers, at full width, held to
+# phase 14 (a)'s depth: 4 of llama3-8b's 32 layers, at full width, held to
 # tp=1 at the same depth (at 32 layers it took 143.4 s of the script's
-# 1200, PERF.md §7)
-TP_DEPTH = 8
+# 1200, at 8 layers 86.71 s; cut to 4 to make room for phase 19,
+# scripts/phase_budget.py, PERF.md §7)
+TP_DEPTH = 4
 
 
 def tp_phase(torch, cfg, prompts):
@@ -2463,7 +2523,6 @@ def mesh_step_profile(torch, step_fn, state, batches, mesh, label,
     time), traced seconds, device ms by family, collective bytes of the
     traced step by position). Logs the trace's top device operations
     too."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.distributed import spmd
     from repro_torch.launch.inspect_hlo import top_ops
     if warm_up:
@@ -2476,7 +2535,7 @@ def mesh_step_profile(torch, step_fn, state, batches, mesh, label,
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / max(len(timed), 1)
     spmd.reset_collective_bytes()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         t0 = time.perf_counter()
         state, m = step_fn(state, batches[-1])
         torch.cuda.synchronize()
@@ -2844,10 +2903,11 @@ def fp32_states_apart(got, want, first_grads, opt):
     return mom, worst(off_rest), worst(flat_gap), flat_apart, seen
 
 
-# phase 16 (a)'s depth: 32 of mamba2-2.7b's 64 layers at full width (the
-# script passed 900 s of its 1200 s on a slow host once phase 18 came;
-# phase 18 (a) serves mamba2 at its full depth)
-MESH_FAMILY_DEPTH = 32
+# phase 16 (a)'s depth: 16 of mamba2-2.7b's 64 layers at full width (the
+# script passed 900 s of its 1200 s on a slow host once phase 18 came, so
+# 32; 16 to make room for phase 19, scripts/phase_budget.py; phase 18 (a)
+# serves mamba2 at its full depth)
+MESH_FAMILY_DEPTH = 16
 
 
 def mesh_families_phase(torch):
@@ -3137,24 +3197,26 @@ SERVE_MESH_CPU_RTOL = 1e-5
 
 def serve_mesh_decode_bytes(cfg, D, M, B):
     """The collective bytes a position counts in one decode step of
-    ``cfg`` (a decoder-only config, weights at ``cfg.dtype``) on a (D, M)
-    mesh under ``DECODE_RULES`` with batch B, from the shapes, each at its
-    result's size. Where d splits over "data", every norm all-reduces its
-    fp32 sum of squares (B, 1) over "data", and every input projection its
-    partial sums: an attention layer's q (B, H/M, hd), k and v (B, Hkv/M,
-    hd); an SSM layer's z and x (B, d_in/M), B and C (B, N) and dt (B,
-    Hs/M); a dense FFN's w_gate and w_up (B, d_ff/M); an MoE FFN's fp32
-    router logits (B, E) and its w_gate and w_up products (E/M, cap, f),
-    cap the whole batch's. Over "model", where they split, the output
-    projections' partials (B, d/D): wo, out_proj (after the gated norm's
-    fp32 sum of squares), w_down, the experts' fp32 combine. Over the grid
-    the softmax's fp32 max and weight sums (B, Hkv, G, 1) and outputs (B,
-    Hkv, G, hd); it all-gathers over "model" q (B, H, hd) and the new k
-    and v (B, Hkv, hd), and an SSM layer whose channels split but heads do
-    not its conv outputs (B, d_in). The head all-reduces the embedding (B,
-    d/D) over "model", the final norm's sum of squares, the logits'
-    partials (B, V/M) over "data", and all-gathers the logits (B, V) over
-    "model"."""
+    ``cfg`` (weights at ``cfg.dtype``) on a (D, M) mesh under
+    ``DECODE_RULES`` with batch B, from the shapes, each at its result's
+    size. Where d splits over "data", every norm all-reduces its fp32 sum
+    of squares (B, 1) over "data", and every input projection its partial
+    sums: an attention layer's q (B, H/M, hd), k and v (B, Hkv/M, hd); a
+    cross-attention's q (B, H/M, hd); an SSM layer's z and x (B, d_in/M),
+    B and C (B, N) and dt (B, Hs/M); a dense FFN's w_gate and w_up (B,
+    d_ff/M); an MoE FFN's fp32 router logits (B, E) and its w_gate and
+    w_up products (E/M, cap, f), cap the whole batch's. Over "model",
+    where they split, the output projections' partials (B, d/D): wo, cwo,
+    out_proj (after the gated norm's fp32 sum of squares), w_down, the
+    experts' fp32 combine. Over the grid each attention's (self and
+    cross) softmax's fp32 max and weight sums (B, Hkv, G, 1) and outputs
+    (B, Hkv, G, hd); it all-gathers over "model" each attention's q (B, H,
+    hd) and the new k and v (B, Hkv, hd), and an SSM layer whose channels
+    split but heads do not its conv outputs (B, d_in). The head
+    all-reduces the embedding (B, d/D) over "model", the final norm's sum
+    of squares, the logits' partials (B, V/M) over "data", and all-gathers
+    the logits (B, V) over "model". A frontend's embeddings and an
+    encoder's frames are in the caches already: the step moves none."""
     import math
     from repro_torch.models.blocks import make_layer_spec
     from repro_torch.models.common import dtype_of
@@ -3170,19 +3232,23 @@ def serve_mesh_decode_bytes(cfg, D, M, B):
     def data(n):                    # partial sums over "data"
         return n if sd else 0
 
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // max(Hkv, 1)
+
+    def attention(kv):              # q (and k, v): (all-reduce, all-gather)
+        red = data(B * 4 + B * per(H) * hd * e + kv * B * per(Hkv) * hd * e)
+        if D * M > 1:
+            red += 2 * B * Hkv * G * 4 + B * Hkv * G * hd * 4
+        if per(H) == H:
+            return red, 0
+        return red + B * dp * e, B * H * hd * e
+
     ar = ag = 0
     for i in range(cfg.num_layers):
         spec = make_layer_spec(cfg, i)
         if spec.mixer == "attn":
-            H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-            G = H // Hkv
-            ar += data(B * 4 + B * per(H) * hd * e
-                       + 2 * B * per(Hkv) * hd * e)
-            if D * M > 1:
-                ar += 2 * B * Hkv * G * 4 + B * Hkv * G * hd * 4
-            if per(H) != H:
-                ar += B * dp * e
-                ag += B * H * hd * e
+            r, g = attention(2)
+            ar, ag = ar + r, ag + g
             if per(Hkv) != Hkv:
                 ag += 2 * B * Hkv * hd * e
         else:
@@ -3195,6 +3261,9 @@ def serve_mesh_decode_bytes(cfg, D, M, B):
                 ar += B * 4 + B * dp * e
                 if per(Hs) == Hs:
                     ag += B * d_in * e
+        if spec.has_cross:
+            r, g = attention(0)
+            ar, ag = ar + r, ag + g
         if spec.ffn == "dense":
             f = cfg.d_ff
             ar += data(B * 4 + 2 * B * per(f) * e)
@@ -3291,34 +3360,38 @@ def routed_agree(torch, want, got, rec_want, rec_got, n_moe, mesh, B,
 
 
 def greedy_run(torch, lm, params, toks, cap, steps, mesh=None,
-               prefill_rows=None):
+               prefill_rows=None, extra=None, offset=0):
     """``lm.prefill`` of ``toks`` (B, S) at ``cap``, then ``steps`` greedy
     ``decode_step``s; on ``mesh``, the prefill's caches moved to the
     decode layout between the two (``LM.caches_for_decode``, outside the
     timed decode); with ``prefill_rows`` (no mesh), each ``prefill_rows``
     rows prefilled on their own (as a data row of a mesh prefills them:
     an MoE's capacity counts their tokens), their caches joined, and the
-    batch decoded whole. Returns each step's logits in fp32 (the
-    prefill's first; position 0's on a mesh), the prefill's flash
+    batch decoded whole. ``extra``: the prefill's other inputs (a
+    frontend's ``embeds`` or an encoder's ``src_embeds``, (B, F, e));
+    ``offset``: the positions ahead of the tokens (a frontend's F), which
+    the decode's ``cache_len`` counts. Returns each step's logits in fp32
+    (the prefill's first; position 0's on a mesh), the prefill's flash
     launches, its caches' bytes a position (on a mesh), the walls, and
     the caches."""
     from repro_torch.distributed import spmd
     from repro_torch.kernels import ops
     S = toks.shape[1]
+    extra = extra or {}
     sync = torch.cuda.synchronize
     sync()
     before = ops.launch_counts()["flash_attention"]
     t0 = time.perf_counter()
     if prefill_rows:
-        parts = [lm.prefill(params, {"tokens": toks[i:i + prefill_rows]},
-                            cap) for i in range(0, toks.shape[0],
-                                                prefill_rows)]
+        parts = [lm.prefill(params, {k: t[i:i + prefill_rows] for k, t in
+                                     dict(extra, tokens=toks).items()}, cap)
+                 for i in range(0, toks.shape[0], prefill_rows)]
         logits = torch.cat([z for z, _ in parts])
         caches = [{k: torch.cat([p[1][i][k] for p in parts])
                    for k in layer} for i, layer in enumerate(parts[0][1])]
         del parts
     else:
-        logits, caches = lm.prefill(params, {"tokens": toks}, cap,
+        logits, caches = lm.prefill(params, dict(extra, tokens=toks), cap,
                                     mesh=mesh)
     sync()
     res = dict(prefill_s=time.perf_counter() - t0,
@@ -3338,7 +3411,7 @@ def greedy_run(torch, lm, params, toks, cap, steps, mesh=None,
     t0 = time.perf_counter()
     for i in range(steps):
         z, caches = lm.decode_step(params, caches, {
-            "token": tok, "cache_len": S + i}, mesh=mesh)
+            "token": tok, "cache_len": offset + S + i}, mesh=mesh)
         out.append((z[0] if mesh is not None else z).float())
         tok = out[-1].argmax(-1)
     sync()
@@ -3415,7 +3488,11 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
     one under ``FlopCounterMode`` for the roofline's terms. Phase 18 runs
     it for ``arch`` at ``layers`` of its layers (all by default), in
     ``dtype`` (the config's by default), for ``steps`` decode steps, and
-    for an MoE config counts and prints each side's dropped assignments.
+    for an MoE config counts and prints each side's dropped assignments;
+    phase 19 for a frontend config (its 256 image embeddings, numpy seed
+    13 after the tokens, ahead of 760 tokens: 1,016 positions) and an
+    encoder-decoder (1,016 tokens over 1,024 source frames), flash
+    counted in every self-, encoder and cross-attention layer.
     ``floor``: the no-mesh fp32 logits of the same prompts (which
     ``detail=False`` returns), against which ``floor_hold`` widens the
     hold. ``detail=False`` stops after the logits check (no traced step,
@@ -3427,7 +3504,6 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
     a drop on either side fails. ``tol=None``: the logits' gap is
     reported, not held. ``routed``: an MoE held row by row up to its
     first token routed to other experts (``routed_agree``)."""
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.distributed import spmd
@@ -3451,9 +3527,16 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
     B, plen, cap = 4, 1016, 4096
     for d in sorted(set(devices)):
         torch.cuda.reset_peak_memory_stats(d)
+    F = cfg.frontend.num_embeds if cfg.frontend.kind != "none" else 0
+    key = "src_embeds" if lm.enc_program else "embeds"
+    off = F if F and key == "embeds" else 0       # positions ahead of tokens
     rng = np.random.default_rng(13)
-    toks = torch.from_numpy(np.stack([rng.integers(1, cfg.vocab_size, plen)
-                                      for _ in range(B)])).long().cuda()
+    toks = torch.from_numpy(np.stack([
+        rng.integers(1, cfg.vocab_size, plen - off) for _ in range(B)])
+    ).long().cuda()
+    extra = ({key: torch.from_numpy(rng.standard_normal(
+        (B, F, cfg.frontend.embed_dim)).astype(np.float32)).cuda()}
+        if F else {})
     params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(
         0), "cuda")
     mesh = make_mesh((2, 2), ("data", "model"), list(devices))
@@ -3461,7 +3544,7 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
     placed = spmd.place_tree(params, lm.param_axes(), mesh, PREFILL_RULES)
     place_s = time.perf_counter() - t0
     held = spmd.bytes_per_position(placed)
-    specs = lm.cache_specs(B, cap)
+    specs = lm.cache_specs(B, cap, F if key == "src_embeds" else 0)
     want = {}
     for name, rules in (("prefill", PREFILL_RULES), ("decode", DECODE_RULES)):
         want[name] = (dryrun.tree_bytes_per_device(
@@ -3475,7 +3558,8 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
         orig, moe.route_logits = moe.route_logits, recording
         try:
             res = greedy_run(torch, lm, p, toks, cap, steps, m,
-                             None if m is not None else prefill_rows)
+                             None if m is not None else prefill_rows,
+                             extra, off)
         finally:
             moe.route_logits = orig
         n_pre = sum(map(cfg.layer_is_moe, range(cfg.num_layers))) * (
@@ -3501,11 +3585,13 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
             and got["decode_cache_bytes"] == [want["decode"][1]] * 4):
         raise AssertionError(f"{tag} {label}: bytes a position "
                              f"differ from the dry-run's")
-    n_attn = cfg.num_attn_layers
+    # every self-, encoder and cross-attention layer launches flash once
+    n_attn = (sum(sp.mixer == "attn" for sp in lm.specs) + len(lm.enc_specs)
+              + sum(sp.has_cross for sp in lm.specs))
     n_flash = n_attn * mesh.size
     log(f"{tag} {label}: flash launches in the prefill {got['flash']}"
-        f" ({n_attn} attention layers x {mesh.size} positions = {n_flash});"
-        f" no mesh {one['flash']}")
+        f" ({n_attn} attention layers (self, encoder, cross) x {mesh.size} "
+        f"positions = {n_flash}); no mesh {one['flash']}")
     if got["flash"] != n_flash or one["flash"] != n_attn * (
             B // (prefill_rows or B)):
         raise AssertionError(f"{tag} {label}: flash launched "
@@ -3547,7 +3633,7 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
         f"logits within {rel:.4e} of the largest |logit| up to each row's "
         f"first divergence ({hold}); divergences (row, step, margin no "
         f"mesh, margin mesh): {divs}")
-    log(f"{tag} {label}: prefill of {B} x {plen} tokens "
+    log(f"{tag} {label}: prefill of {B} x {plen} positions "
         f"{got['prefill_s'] * 1e3:.1f} ms on the mesh, "
         f"{one['prefill_s'] * 1e3:.1f} ms with no mesh; decode "
         f"{got['step_s'] * 1e3:.1f} ms a step on the mesh, "
@@ -3565,7 +3651,7 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
     gc.collect()
     # one traced decode step and one counted, past the compared ones
     spmd.reset_collective_bytes()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         t0 = time.perf_counter()
         z, caches = lm.decode_step(placed, caches, {
             "token": tok, "cache_len": plen + steps}, mesh=mesh)
@@ -3622,6 +3708,11 @@ SERVE_FAMILIES_REDUCED = (
     ("mamba2-2.7b", {}, (2, 2), 64),
     ("mamba2-2.7b", {"ssm": dict(expand=3, head_dim=64)}, (1, 2), 64),
     ("jamba-1.5-large-398b", {"num_layers": 8}, (2, 2), 62))
+# phase 19 (c)'s: the cases of tests/test_torch_mesh_serve_encdec.py
+SERVE_ENCDEC_REDUCED = tuple(
+    (arch, {}, shape, 64) for arch in ("paligemma-3b", "seamless-m4t-medium")
+    for shape in ((2, 2), (1, 4), (4, 1))) + (
+    ("seamless-m4t-medium", {"frontend": dict(num_embeds=6)}, (2, 2), 64),)
 
 
 def serve_mesh_reduced(torch, cases=SERVE_MESH_REDUCED,
@@ -3634,6 +3725,9 @@ def serve_mesh_reduced(torch, cases=SERVE_MESH_REDUCED,
     the rings), every step's logits within ``SERVE_MESH_CPU_RTOL`` of the
     largest |logit| and every position's equal. Phase 18 (c) runs
     ``SERVE_FAMILIES_REDUCED`` (arch, config overrides, mesh, capacity)
+    alike, and phase 19 (c) ``SERVE_ENCDEC_REDUCED``: a frontend's 8
+    embeddings (numpy seed 0) ahead of 20 tokens, or an encoder's 8 (or
+    6) source frames under 28, so that the decode writes slots 28-33
     alike."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import spmd
@@ -3644,26 +3738,38 @@ def serve_mesh_reduced(torch, cases=SERVE_MESH_REDUCED,
     for arch, over, shape, cap in cases:
         base = get_config(arch).reduced()
         over = dict(over)
-        if "ssm" in over:
-            over["ssm"] = dataclasses.replace(base.ssm, **over["ssm"])
+        for sub in ("ssm", "frontend"):
+            if sub in over:
+                over[sub] = dataclasses.replace(getattr(base, sub),
+                                                **over[sub])
         cfg = dataclasses.replace(base, dtype="float32", **over)
         lm = LM(cfg)
         params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
         toks = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (4, 34))).long()
+        batch, plen, note = {}, 28, ""
+        if cfg.frontend.kind != "none":
+            key = "src_embeds" if lm.enc_program else "embeds"
+            F, e = cfg.frontend.num_embeds, cfg.frontend.embed_dim
+            batch[key] = torch.from_numpy(np.random.default_rng(0)
+                                          .standard_normal((4, F, e))
+                                          .astype(np.float32))
+            plen -= F if key == "embeds" else 0
+            note = f" with {F} {key}"
+        batch["tokens"] = toks[:, :plen]
         runs = []
         for where in ("cpu", "cuda"):
             mesh = make_mesh(shape, ("data", "model"),
                              [where] * (shape[0] * shape[1]))
             placed = spmd.place_tree(params, lm.param_axes(), mesh,
                                      PREFILL_RULES)
-            z, caches = lm.prefill(placed, {"tokens": toks[:, :28].to(
-                where)}, cap, mesh=mesh)
+            z, caches = lm.prefill(placed, {k: t.to(where) for k, t in
+                                            batch.items()}, cap, mesh=mesh)
             caches = lm.caches_for_decode(caches)
             out = [z]
             for i in range(6):
                 z, caches = lm.decode_step(placed, caches, {
-                    "token": toks[:, 28 + i].to(where),
+                    "token": toks[:, plen + i].to(where),
                     "cache_len": 28 + i}, mesh=mesh)
                 out.append(z)
             for step in out:
@@ -3673,8 +3779,8 @@ def serve_mesh_reduced(torch, cases=SERVE_MESH_REDUCED,
             runs.append([step[0].cpu() for step in out])
         rel = max(((a - b).abs().max() / a.abs().max()).item()
                   for a, b in zip(*runs))
-        log(f"{tag} {cfg.name} fp32 on {shape} stacked at capacity {cap}, "
-            f"card vs CPU: prefill and 6 decode steps' logits within "
+        log(f"{tag} {cfg.name}{note} fp32 on {shape} stacked at capacity "
+            f"{cap}, card vs CPU: prefill and 6 decode steps' logits within "
             f"{rel:.3e} relative (tolerance {SERVE_MESH_CPU_RTOL})")
         if not rel <= SERVE_MESH_CPU_RTOL:
             raise AssertionError(f"{tag}: {cfg.name} {shape} card != CPU "
@@ -3785,9 +3891,66 @@ def serve_mesh_families_phase(torch):
     return launches
 
 
+# --------------------------------------------------------------- phase 19
+
+def serve_mesh_encdec_phase(torch):
+    """Prefill and decode of the frontend and encoder-decoder families on
+    a (data, model) mesh (cell S14), four positions stacked on the card,
+    each at full width and depth as phase 17 (a) (``serve_mesh_full``):
+    (a) paligemma-3b (256 image embeddings ahead of 760 tokens; one kv
+    head of 256, whole on every position), (b) seamless-m4t-medium (12
+    encoder and 12 decoder layers; 1,016 tokens over 1,024 source frames,
+    the cross caches' frames split over the grid); each first in fp32 for
+    8 steps, held within ``SERVE_FP32_TOL`` of no mesh, then in bf16 for
+    32, held within ``CONTINUITY_TOL``; (c) the reduced paligemma and
+    seamless in fp32 on the test's meshes, card against CPU
+    (``serve_mesh_reduced``). Returns the phase's kernel launches."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    for part, arch in (("a", "paligemma-3b"), ("b", "seamless-m4t-medium")):
+        t0 = time.perf_counter()
+        serve_mesh_full(torch, MESH_STACK, "stacked", arch=arch,
+                        tag=f"serve encdec ({part}) fp32", dtype="float32",
+                        detail=False, steps=8, tol=SERVE_FP32_TOL)
+        serve_mesh_full(torch, MESH_STACK, "stacked", arch=arch,
+                        tag=f"serve encdec ({part})")
+        log(f"phase 19 ({part}) wall: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    serve_mesh_reduced(torch, SERVE_ENCDEC_REDUCED, "serve encdec (c)")
+    log(f"phase 19 (c) wall: {time.perf_counter() - t0:.2f} s")
+    launches = ops.launch_counts()
+    log(f"serve encdec path kernel launches: {launches}")
+    if not launches["flash_attention"]:
+        raise AssertionError("phase 19: flash never launched")
+    log(f"phase 19 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+# the phases ``--phase N`` runs alone (after phases 1 and 2)
+ALONE = ("14", "16", "17", "18", "19")
+
+
+def run_alone(torch, phase):
+    """Phase ``phase`` (one of ``ALONE``) on its own, the kernels built;
+    returns its kernel launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3-8b")
+    run = {"14": lambda: tp_phase(torch, cfg, make_prompts(
+               cfg, 8, (200, 1001), (32, 65), seed=0)),
+           "16": lambda: mesh_families_phase(torch),
+           "17": lambda: serve_mesh_phase(torch),
+           "18": lambda: serve_mesh_families_phase(torch),
+           "19": lambda: serve_mesh_encdec_phase(torch)}
+    return run[phase]()
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--timing"], ["--phase", "17"], ["--phase", "18"]):
-        log("usage: chip_smoke.py [--timing | --phase {17,18}]")
+    if argv not in ([], ["--timing"]) and not (
+            len(argv) == 2 and argv[0] == "--phase" and argv[1] in ALONE):
+        log(f"usage: chip_smoke.py [--timing | --phase {{{','.join(ALONE)}}}]")
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3818,10 +3981,9 @@ def main(argv) -> int:
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_config("llama3-8b")
-    if argv[:1] == ["--phase"]:          # one serving-mesh phase alone
-        run = {"17": serve_mesh_phase, "18": serve_mesh_families_phase}
+    if argv[:1] == ["--phase"]:          # one phase alone
         torch.cuda.init()
-        log(f"phase {argv[1]} kernel launches: {run[argv[1]](torch)}")
+        log(f"phase {argv[1]} kernel launches: {run_alone(torch, argv[1])}")
         return 0
     if argv:                             # --timing: phase 4 alone
         print(json.dumps({"timing": kernel_timing(torch, ops, ref, quant,
@@ -3948,6 +4110,10 @@ def main(argv) -> int:
     # 18. prefill and decode of the MoE, SSM and hybrid families on a mesh
     launches["mesh_serve_families"] = serve_mesh_families_phase(torch)
 
+    # 19. prefill and decode of the frontend and encoder-decoder families
+    # on a mesh
+    launches["mesh_serve_encdec"] = serve_mesh_encdec_phase(torch)
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -3976,7 +4142,9 @@ def main(argv) -> int:
                                  launches["mesh_families"]),
                                 ("17_mesh_serve", launches["mesh_serve"]),
                                 ("18_mesh_serve_families",
-                                 launches["mesh_serve_families"]))})
+                                 launches["mesh_serve_families"]),
+                                ("19_mesh_serve_encdec",
+                                 launches["mesh_serve_encdec"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

@@ -17,11 +17,13 @@ It runs on CUDA unless ``--device cpu``. ``--mesh D,M`` runs the cell's
 step on a ``(data, model)`` mesh (``launch.mesh.make_mesh``: CUDA needs
 ``D·M`` cards unless ``--device`` lists one device a shard, e.g.
 ``cuda:0,cuda:0,cuda:0,cuda:0``; ``--device cpu`` puts every shard on
-the CPU): a train cell of any family, a prefill cell under
-``PREFILL_RULES`` or a decode cell under ``DECODE_RULES`` of a dense
-decoder family (the others raise, naming ROADMAP.md §1 item 3). It
-prints the top operations of each device, then the bytes each position's
-collectives counted and the roofline's collective term they give.
+the CPU): a train cell, a prefill cell under ``PREFILL_RULES`` or a
+decode cell under ``DECODE_RULES``, of any family (an encoder-decoder's
+decode reads cross caches over its source frames). It prints the top
+operations of each device, then the bytes each position's collectives
+counted and the roofline's collective term they give. ``--mesh P,D,M``
+puts a "pod" axis first, which the mesh path refuses, naming ROADMAP.md
+§1 item 3.
 """
 from __future__ import annotations
 
@@ -105,7 +107,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="none",
                     help="'none' (one device) or 'D,M': the cell on a "
-                         "(data, model) mesh")
+                         "(data, model) mesh ('P,D,M': with a pod axis)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--periods", type=int, default=1)
     ap.add_argument("--top", type=int, default=20)
@@ -147,12 +149,13 @@ def main(argv=None) -> int:
     if mesh_shape is not None:
         dev = (args.device.split(",") if args.device and "," in args.device
                else args.device)
-        mesh = make_mesh(mesh_shape, ("data", "model")[:len(mesh_shape)],
-                         dev)
+        axes = (("pod", "data", "model") if len(mesh_shape) == 3
+                else ("data", "model")[:len(mesh_shape)])
+        mesh = make_mesh(mesh_shape, axes, dev)
         device = mesh.devices[0]
         meta = bundle.static_meta
         lm = LM(var, remat_group=meta.get("remat_group", 1))
-        check_mesh_support(mesh, bundle.kind, var)
+        check_mesh_support(mesh, bundle.kind)
         if bundle.kind == "train":
             fn = make_train_step(
                 lm, AdamWConfig(moments_dtype=meta["moments_dtype"]),

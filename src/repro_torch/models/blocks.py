@@ -22,16 +22,17 @@ computes the whole). The SSM's output norm spans the whole ``d_in``: its
 sum of squares is all-reduced over "model" before the division.
 
 ``apply_layer_shards_prefill`` and ``apply_layer_shards_decode`` run a
-decoder layer (an attention or SSM mixer, a dense, MoE or no FFN) over
-the mesh in the two serving cells: the prefill as ``apply_layer_shards``,
-returning its caches as ``spmd.Placed`` leaves (k/v with the kv heads
-gathered over "model" and each position's slots kept; the SSM's conv
-inputs and state on each position's channels and heads); the decode
-weight-stationary, on the residual stream split over "data" along d: its
-softmax merged over the caches' pieces across the grid, the SSM's caches
-stepped in place on their pieces, the experts' router and products
-summed over "data" and their combine over "model". ``_ffn_shards`` is
-the FFN of every mode.
+decoder layer of any family (an attention or SSM mixer, a cross-attention
+over an encoder's memory, a dense, MoE or no FFN) over the mesh in the two
+serving cells: the prefill as ``apply_layer_shards``, returning its
+caches as ``spmd.Placed`` leaves (k/v, and the cross-attention's ck/cv,
+with the kv heads gathered over "model" and each position's slots kept;
+the SSM's conv inputs and state on each position's channels and heads);
+the decode weight-stationary, on the residual stream split over "data"
+along d: its softmax merged over the caches' pieces across the grid (the
+cross caches read, never written), the SSM's caches stepped in place on
+their pieces, the experts' router and products summed over "data" and
+their combine over "model". ``_ffn_shards`` is the FFN of every mode.
 """
 from __future__ import annotations
 
@@ -199,14 +200,17 @@ def _attn_seq(cfg, spec, p, x, positions, window, kv_pick=None):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
 
-def _cross_seq(cfg, p, x, memory):
+def _cross_seq(cfg, p, x, memory, kv_pick=None):
     """Attention of x over the encoder's memory: non-causal, Sq != Skv, no
-    RoPE. Returns out, (ck, cv)."""
+    RoPE. ``kv_pick`` as ``_attn_seq``'s. Returns out, (ck, cv) of every
+    kv head ``p`` holds."""
     h = rms_norm(x, p["ln_cross"], cfg.rms_eps)
     q = torch.einsum("bsd,dhk->bshk", h, p["cwq"]).contiguous()
     ck = torch.einsum("bsd,dhk->bshk", memory, p["cwk"]).contiguous()
     cv = torch.einsum("bsd,dhk->bshk", memory, p["cwv"]).contiguous()
-    out = attn_lib.flash_attention(q, ck, cv, causal=False)
+    ks, vs = ((ck, cv) if kv_pick is None else
+              (_pick_heads(ck, kv_pick, 2), _pick_heads(cv, kv_pick, 2)))
+    out = attn_lib.flash_attention(q, ks, vs, causal=False)
     return torch.einsum("bshk,hkd->bsd", out, p["cwo"]), (ck, cv)
 
 
@@ -608,41 +612,69 @@ def _placed_state(ts: list, aspec: ArraySpec, mesh, rules) -> spmd.Placed:
     return spmd.Placed(pieces, spec, shape, mesh, aspec.logical_axes)
 
 
+def _attn_shards_cached(cfg: ModelConfig, mesh, ws: list, pre: str, run
+                        ) -> Tuple[list, list, list]:
+    """A prefill's self- (``pre`` "") or cross-attention (``pre`` "c")
+    over the mesh: ``run(r, w, pick)`` gives position r's output and the
+    k/v of every kv head ``w`` holds, its q heads reading the kv heads
+    ``pick`` (``_kv_pick``); the outputs all-reduced over "model" where
+    the heads split. Returns (outputs, ks, vs)."""
+    outs, ks, vs = [], [], []
+    for r, w in enumerate(ws):
+        pick = _kv_pick(cfg, mesh, r, w[pre + "wq"].shape[1],
+                        w[pre + "wk"].shape[1])
+        o, (k, v) = run(r, w, pick)
+        outs.append(o)
+        ks.append(k)
+        vs.append(v)
+    if ws[0][pre + "wo"].shape[0] != cfg.num_heads:
+        outs = spmd.all_reduce(outs, mesh, "model")
+    return outs, ks, vs
+
+
 def apply_layer_shards_prefill(cfg: ModelConfig, spec: LayerSpec, mesh,
                                ws: list, xs: list, positions: list,
-                               cache_specs: Dict[str, ArraySpec], rules
+                               cache_specs: Dict[str, ArraySpec], rules,
+                               memory: Optional[list] = None
                                ) -> Tuple[list, Dict[str, spmd.Placed]]:
     """A prefill's decoder layer over the mesh (an attention or SSM mixer,
-    a dense, MoE or no FFN): ``apply_layer_shards`` that also returns the
-    layer's cache as ``spmd.Placed`` leaves, laid out by ``cache_specs``
-    (``layer_cache_specs``) under ``rules`` (``PREFILL_RULES``: the batch
-    over "data"; ``kv_seq``, the SSM channels and heads over "model").
-    Attention runs flash on each position's q heads and caches the k/v of
-    every kv head it holds (``ws`` from ``shard_weights(...,
-    pick_kv=False)``); an SSM layer caches the conv inputs and the state
-    of the channels and heads each position scanned (all of them where
-    the channels split but the heads do not, ``_ssm_cut_in_heads``)."""
+    a cross-attention over ``memory[r]``, position r's copy of the
+    encoder's memory, a dense, MoE or no FFN): ``apply_layer_shards`` that
+    also returns the layer's cache as ``spmd.Placed`` leaves, laid out by
+    ``cache_specs`` (``layer_cache_specs``) under ``rules``
+    (``PREFILL_RULES``: the batch over "data"; ``kv_seq``, the SSM
+    channels and heads over "model"). Self- and cross-attention run flash
+    on each position's q heads and cache the k/v of every kv head it holds
+    (``ws`` from ``shard_weights(..., pick_kv=False)``; the cross caches
+    ``ck``/``cv`` over the memory's frames); an SSM layer caches the conv
+    inputs and the state of the channels and heads each position scanned
+    (all of them where the channels split but the heads do not,
+    ``_ssm_cut_in_heads``)."""
     if spec.mixer == "attn":
         window = 0 if spec.is_global else cfg.attn.sliding_window
-        outs, kv = [], {"k": [], "v": []}
-        for r, (w, x, pos) in enumerate(zip(ws, xs, positions)):
-            pick = _kv_pick(cfg, mesh, r, w["wq"].shape[1],
-                            w["wk"].shape[1])
-            o, (k, v) = _attn_seq(cfg, spec, w, x, pos, window, pick)
-            outs.append(o)
-            kv["k"].append(k)
-            kv["v"].append(v)
-        if ws[0]["wo"].shape[0] != cfg.num_heads:
-            outs = spmd.all_reduce(outs, mesh, "model")
+        outs, ks, vs = _attn_shards_cached(
+            cfg, mesh, ws, "", lambda r, w, pick: _attn_seq(
+                cfg, spec, w, xs[r], positions[r], window, pick))
         ring = _is_ring(cfg, spec, cache_specs["k"].shape[1])
-        cache = {name: _placed_cache(kv[name], cache_specs[name], mesh,
-                                     rules, ring) for name in ("k", "v")}
+        cache = {name: _placed_cache(t, cache_specs[name], mesh, rules, ring)
+                 for name, t in (("k", ks), ("v", vs))}
     else:
         outs, cs = _ssm_shards(cfg, mesh, ws, xs, want_cache=True)
         cache = {name: _placed_state([c[name] for c in cs], aspec, mesh,
                                      rules)
                  for name, aspec in cache_specs.items()}
     xs = [x + o for x, o in zip(xs, outs)]
+    if spec.has_cross:
+        if memory is None:
+            raise ValueError("a cross-attention layer needs the encoder's "
+                             "memory")
+        outs, ks, vs = _attn_shards_cached(
+            cfg, mesh, ws, "c", lambda r, w, pick: _cross_seq(
+                cfg, w, xs[r], memory[r], pick))
+        cache.update({name: _placed_cache(t, cache_specs[name], mesh, rules,
+                                          False)
+                      for name, t in (("ck", ks), ("cv", vs))})
+        xs = [x + o for x, o in zip(xs, outs)]
     return _ffn_shards(cfg, spec, mesh, ws, xs), cache
 
 
@@ -674,20 +706,21 @@ def _contract(mesh, split: bool, hs: list, ws: list, name: str,
     return spmd.all_reduce(parts, mesh, "data") if split else parts
 
 
-def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list, ks: list,
-                        vs: list, cache: Dict[str, spmd.Placed], slot: int,
-                        valid_to: int) -> list:
-    """One-token attention over a cache laid out on the mesh: each
-    position writes the new token's k/v (``ks[r]``, every kv head) where
-    its piece holds ``slot``, and attends its piece with the q heads
-    (``qs[r]``, all of them) that read its kv heads
+def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list,
+                        kc: spmd.Placed, vc: spmd.Placed, valid_to: int,
+                        write: Optional[Tuple[list, list, int]] = None
+                        ) -> list:
+    """One-token attention over a cache ``kc``/``vc`` laid out on the mesh:
+    with ``write`` (ks, vs, slot), each position first writes the new
+    token's k/v (``ks[r]``, every kv head) where its piece holds ``slot``
+    (without, the cache is read only: the cross caches); each attends its
+    piece with the q heads (``qs[r]``, all of them) that read its kv heads
     (``decode_attention_partial`` at the piece's offset); the pieces merge
     over the whole grid (``combine_decode_attention``). Where the piece is
     not the whole batch and every kv head, or another position holds it
     first, its statistics stand in a whole-size tensor at their place, or
     not at all (every piece counted once). Returns (B, Hq, D) a
     position."""
-    kc, vc = cache["k"], cache["v"]
     B, _, Hkv, D = kc.shape
     G = cfg.num_heads // Hkv
 
@@ -701,6 +734,7 @@ def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list, ks: list,
     for r in range(mesh.size):
         (b0, nb), (s0, ns), (h0, nh), _ = kc.ranges(r)
         kp, vp = kc.pieces[r], vc.pieces[r]
+        ks, vs, slot = write or (None, None, -1)
         if s0 <= slot < s0 + ns:
             kp[:, slot - s0] = ks[r][b0:b0 + nb, h0:h0 + nh].to(kp.dtype)
             vp[:, slot - s0] = vs[r][b0:b0 + nb, h0:h0 + nh].to(vp.dtype)
@@ -718,6 +752,20 @@ def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list, ks: list,
     outs = attn_lib.combine_decode_attention(parts, mesh, mesh.axis_names)
     return [o.reshape(B, cfg.num_heads, D).to(q.dtype)
             for o, q in zip(outs, qs)]
+
+
+def _heads_out_shards(cfg: ModelConfig, mesh, outs: list, ws: list,
+                      name: str) -> list:
+    """A decode's output projection ``name`` (``wo`` or ``cwo``) of each
+    position's attention output ``outs[r]`` (B, H, hd), every head: each
+    position's d piece from its heads, all-reduced over "model" where the
+    heads split."""
+    H = cfg.num_heads
+    n = ws[0][name].shape[0]
+    res = [torch.einsum("bhk,hkd->bd", o.narrow(
+        1, (mesh.axis_index(r, "model") * n) if n != H else 0, n), w[name])
+        for r, (o, w) in enumerate(zip(outs, ws))]
+    return spmd.all_reduce(res, mesh, "model") if n != H else res
 
 
 def _attn_decode_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
@@ -747,14 +795,25 @@ def _attn_decode_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
         slot, vt = int(cache_len) % cap, min(int(cache_len) + 1, cap)
     else:
         slot, vt = int(cache_len), int(cache_len) + 1
-    out = _decode_attn_pieces(cfg, mesh, q, k, v, cache, slot, vt)
-    n = ws[0]["wo"].shape[0]
-    outs = [torch.einsum("bhk,hkd->bd", o.narrow(
-        1, (mesh.axis_index(r, "model") * n) if n != H else 0, n), w["wo"])
-        for r, (o, w) in enumerate(zip(out, ws))]
-    if n != H:
-        outs = spmd.all_reduce(outs, mesh, "model")
-    return outs
+    out = _decode_attn_pieces(cfg, mesh, q, cache["k"], cache["v"], vt,
+                              (k, v, slot))
+    return _heads_out_shards(cfg, mesh, out, ws, "wo")
+
+
+def _cross_decode_shards(cfg: ModelConfig, mesh, ws: list, xs: list,
+                         cache: Dict[str, spmd.Placed], split: bool) -> list:
+    """A cross-attention's decode step over the mesh: the ``ln_cross``
+    norm over the d pieces, ``cwq`` partial sums over "data", q gathered
+    over "model" to every head, attention over the pieces of the cross
+    caches (every source frame valid; nothing written), ``cwo`` each
+    position's d piece from its heads, all-reduced over "model"."""
+    hs = norm_pieces(cfg, mesh, xs, [w["ln_cross"] for w in ws])
+    q = _contract(mesh, split, hs, ws, "cwq", "bd,dhk->bhk")
+    if q[0].shape[1] != cfg.num_heads:
+        q = spmd.all_gather(q, mesh, "model", dim=1)
+    out = _decode_attn_pieces(cfg, mesh, q, cache["ck"], cache["cv"],
+                              cache["ck"].shape[1])
+    return _heads_out_shards(cfg, mesh, out, ws, "cwo")
 
 
 def _ssm_decode_shards(cfg: ModelConfig, mesh, ws: list, xs: list,
@@ -797,18 +856,19 @@ def apply_layer_shards_decode(cfg: ModelConfig, spec: LayerSpec, mesh,
                               cache: Dict[str, spmd.Placed], cache_len: int
                               ) -> list:
     """One decode step of a decoder layer over the mesh (an attention or
-    SSM mixer, a dense, MoE or no FFN), weight-stationary
-    (``DECODE_RULES``): ``p`` the layer's ``spmd.Placed`` weights, used as
-    their pieces, never gathered; ``xs[r]`` position r's piece (B, d / D)
-    of the residual stream, split over "data" along d and whole in batch;
-    ``cache`` its caches over the mesh, updated in place. Each input
+    SSM mixer, a cross-attention over the cross caches, a dense, MoE or no
+    FFN), weight-stationary (``DECODE_RULES``): ``p`` the layer's
+    ``spmd.Placed`` weights, used as their pieces, never gathered;
+    ``xs[r]`` position r's piece (B, d / D) of the residual stream, split
+    over "data" along d and whole in batch; ``cache`` its caches over the
+    mesh, updated in place (the cross caches only read). Each input
     projection is a position's d piece times its ``fsdp`` rows, partial
     sums all-reduced over "data"; each output projection (``wo``,
-    ``out_proj``, ``w_down``, the experts' combine) gives each position's
-    d piece from its heads, channels, ``d_ff`` columns or experts,
-    all-reduced over "model" (``_attn_decode_shards``,
-    ``_ssm_decode_shards``, ``_ffn_shards``). Returns the new residual
-    pieces."""
+    ``cwo``, ``out_proj``, ``w_down``, the experts' combine) gives each
+    position's d piece from its heads, channels, ``d_ff`` columns or
+    experts, all-reduced over "model" (``_attn_decode_shards``,
+    ``_cross_decode_shards``, ``_ssm_decode_shards``, ``_ffn_shards``).
+    Returns the new residual pieces."""
     split = xs[0].shape[-1] != cfg.d_model
     ws = _per_position(p, mesh.size, lambda _, v: v.pieces)
     if spec.mixer == "attn":
@@ -817,4 +877,7 @@ def apply_layer_shards_decode(cfg: ModelConfig, spec: LayerSpec, mesh,
     else:
         outs = _ssm_decode_shards(cfg, mesh, ws, xs, cache, split)
     xs = [x + o for x, o in zip(xs, outs)]
+    if spec.has_cross:
+        outs = _cross_decode_shards(cfg, mesh, ws, xs, cache, split)
+        xs = [x + o for x, o in zip(xs, outs)]
     return _ffn_shards(cfg, spec, mesh, ws, xs, decode=True)

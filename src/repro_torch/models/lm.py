@@ -27,14 +27,17 @@ thread, where ``torch.utils.checkpoint``'s hooks would run on every card's
 autograd thread at once; the encoder runs without remat, as the
 reference's, and each position's copy of its memory feeds that position's
 cross-attention heads). ``prefill(..., mesh=)`` and
-``decode_step(..., mesh=)`` run the dense decoder families (attention
-layers with a dense FFN) over such a mesh: the prefill under
-``PREFILL_RULES`` (each data row its share of the batch, flash on each
-position's q heads, the caches' sequence over "model"), the decode under
+``decode_step(..., mesh=)`` run every family over such a mesh: the
+prefill under ``PREFILL_RULES`` (each data row its share of the batch, of
+its frontend embeddings or of its encoder's source frames, flash on each
+position's q heads, the caches' sequence over "model"; an encoder's
+memory first, each position's copy feeding its cross-attention, whose
+keys and values become the cross caches), the decode under
 ``DECODE_RULES`` (weight-stationary: the residual stream split over
 "data" along d and whole in batch, the caches' sequence over the whole
-grid, the softmax merged across it); ``caches_for_decode`` moves a
-prefill's caches to the decode layout between the two.
+grid, the softmax merged across it; the cross caches read, never
+written); ``caches_for_decode`` moves a prefill's caches to the decode
+layout between the two.
 ``param_structs``, ``param_axes``
 and ``cache_specs`` describe the weights and caches, with their logical
 axes, without allocating them (the dry-run's input). The reference's
@@ -188,10 +191,9 @@ class LM:
         """batch: tokens (B, S) [+ embeds (B, F, e) or src_embeds (B, F,
         e)]. Positions (and so the decode's ``cache_len``) count a
         frontend's F embeddings first. Returns (last_logits (B, V),
-        caches). With ``mesh`` (a decoder-only config without a frontend;
-        ``params`` placed by ``spmd``), the logits whole on every position
-        as a list, and caches of ``spmd.Placed`` leaves under
-        ``PREFILL_RULES``."""
+        caches). With ``mesh`` (``params`` placed by ``spmd``), the logits
+        whole on every position as a list, and caches of ``spmd.Placed``
+        leaves under ``PREFILL_RULES``."""
         if mesh is not None:
             return self._prefill_mesh(params, batch, capacity, mesh)
         cfg = self.cfg
@@ -211,11 +213,11 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params, caches, batch, mesh=None):
         """batch: token (B,), cache_len int. Returns (logits (B, V), caches);
-        the caches are updated in place. With ``mesh`` (a decoder-only
-        config without a frontend; ``params`` placed by ``spmd``, the
-        caches ``spmd.Placed``,
-        best under ``DECODE_RULES``: ``caches_for_decode``), the logits
-        whole on every position as a list."""
+        the caches are updated in place; ``cache_len`` counts a frontend's
+        F embeddings. With ``mesh`` (``params`` placed by ``spmd``, the
+        caches ``spmd.Placed``, best under ``DECODE_RULES``:
+        ``caches_for_decode``), the logits whole on every position as a
+        list."""
         if mesh is not None:
             return self._decode_mesh(params, caches, batch, mesh)
         x = params["head"]["embed"][batch["token"]]          # (B, d)
@@ -328,10 +330,9 @@ class LM:
                              f"{D} data shards")
         b, V = B // D, cfg.vocab_size
         devs = mesh.devices
-        row = [mesh.axis_index(r, "data") for r in range(mesh.size)]
 
         def rows(k, r):
-            return batch[k][row[r] * b:(row[r] + 1) * b].to(devs[r])
+            return _data_rows(batch[k], mesh, r, b)
 
         def vocab_cols(r, n):
             """(first vocabulary row of position r's shard, its rows)."""
@@ -347,11 +348,8 @@ class LM:
                                       for r in range(mesh.size)], mesh)
         frontend = cfg.frontend.kind != "none" and not self.enc_program
         if frontend:
-            proj = spmd.gathered_over(head["frontend_proj"], "data")
-            for r in range(mesh.size):
-                e = rows("embeds", r).to(xs[r].dtype)
-                xs[r] = torch.cat([(e @ proj[r]).to(xs[r].dtype), xs[r]],
-                                  dim=1)
+            xs = self._frontend_shards(head, xs, [rows("embeds", r)
+                                                  for r in range(mesh.size)])
         n_in = xs[0].shape[1]
         positions = [torch.arange(n_in, device=d).expand(b, n_in)
                      for d in devs]
@@ -422,34 +420,59 @@ class LM:
             xs = spmd.all_reduce(xs, mesh, "model")
         return xs
 
+    def _frontend_shards(self, head, xs, embeds):
+        """Each position's frontend embeddings ``embeds[r]`` (its data
+        row's, (b, F, e)) projected with ``frontend_proj`` gathered over
+        "data", ahead of its token embeddings ``xs[r]``."""
+        proj = spmd.gathered_over(head["frontend_proj"], "data")
+        return [torch.cat([(e.to(x.dtype) @ w).to(x.dtype), x], dim=1)
+                for x, e, w in zip(xs, embeds, proj)]
+
     def _prefill_mesh(self, params, batch, capacity: int, mesh):
         """``prefill`` over ``mesh`` under ``PREFILL_RULES``: each data row
-        takes its share of the batch (the whole batch where "data" does
-        not divide it), the weights gathered over "data" layer by layer
-        (``blocks.shard_weights``), each position's q heads through flash,
-        its SSM channels and heads, its experts over its data row's tokens
+        takes its share of the batch, of its frontend embeddings or of its
+        source frames (all of them where "data" does not divide the
+        batch); an encoder's memory first (``_encode_shards``), each
+        position's copy feeding its cross-attention; a frontend's
+        projected embeddings ahead of the tokens; the weights gathered
+        over "data" layer by layer (``blocks.shard_weights``), each
+        position's q heads through flash, its SSM channels and heads, its
+        experts over its data row's tokens
         (``blocks.apply_layer_shards_prefill``); the logits from each
         position's vocabulary shard, gathered over "model" and "data"."""
         cfg = self.cfg
-        check_mesh_support(mesh, "prefill", cfg)
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        check_mesh_support(mesh, "prefill")
+        B, S = batch["tokens"].shape
         split = bool(pspec_for(("batch", None), mesh, PREFILL_RULES,
                                (B, S)))
         b = B // mesh.shape.get("data", 1) if split else B
         devs = mesh.devices
-        rows = [tokens[mesh.axis_index(r, "data") * b:][:b].to(devs[r])
-                if split else tokens.to(devs[r]) for r in range(mesh.size)]
+
+        def rows(k):
+            return [_data_rows(batch[k], mesh, r, b)
+                    for r in range(mesh.size)]
+
         head = params["head"]
+        memory, src_len = None, 0
+        if self.enc_program:
+            memory = self._encode_shards(head, params["encoder"],
+                                         rows("src_embeds"), mesh)
+            src_len = batch["src_embeds"].shape[1]
         emb = spmd.gathered_over(head["embed"], "data")
-        xs = self._vocab_lookup(emb, rows, mesh)
-        positions = [torch.arange(S, device=d).expand(b, S) for d in devs]
+        xs = self._vocab_lookup(emb, rows("tokens"), mesh)
+        if cfg.frontend.kind != "none" and not self.enc_program:
+            xs = self._frontend_shards(head, xs, rows("embeds"))
+        n_in = xs[0].shape[1]
+        positions = [torch.arange(n_in, device=d).expand(b, n_in)
+                     for d in devs]
         caches = []
         for spec, p, cs in zip(self.specs, params["layers"],
-                               self.cache_specs(B, capacity), strict=True):
+                               self.cache_specs(B, capacity, src_len),
+                               strict=True):
             ws = blocks.shard_weights(cfg, p, mesh, pick_kv=False)
             xs, c = blocks.apply_layer_shards_prefill(
-                cfg, spec, mesh, ws, xs, positions, cs, PREFILL_RULES)
+                cfg, spec, mesh, ws, xs, positions, cs, PREFILL_RULES,
+                memory)
             caches.append(c)
             del ws
         norm = spmd.gathered_over(head["final_norm"], "data")
@@ -468,12 +491,14 @@ class LM:
     def _decode_mesh(self, params, caches, batch, mesh):
         """``decode_step`` over ``mesh`` under ``DECODE_RULES``: the token
         embedded from each position's (vocabulary, d) piece of the table
-        and summed over "model", the layers weight-stationary
-        (``blocks.apply_layer_shards_decode``), the logits each position's
-        vocabulary shard from its d piece, summed over "data" and gathered
-        over "model"."""
+        and summed over "model" (a frontend's embeddings are in the caches
+        already, and ``cache_len`` counts them), the layers
+        weight-stationary (``blocks.apply_layer_shards_decode``: an
+        encoder-decoder's cross-attention reads its cross caches), the
+        logits each position's vocabulary shard from its d piece, summed
+        over "data" and gathered over "model"."""
         cfg = self.cfg
-        check_mesh_support(mesh, "decode", cfg)
+        check_mesh_support(mesh, "decode")
         head = params["head"]
         tok = batch["token"]
         cache_len = int(batch["cache_len"])
@@ -532,15 +557,23 @@ class _Remat(torch.autograd.Function):
         return (None, None, *full)
 
 
-def check_mesh_support(mesh, kind: str = "train",
-                       cfg: Optional[ModelConfig] = None) -> None:
+def _data_rows(t: torch.Tensor, mesh, r: int, b: int) -> torch.Tensor:
+    """Position ``r``'s data row's ``b`` rows of ``t`` (B, ...) on its
+    device: all of them where ``b`` is B."""
+    if b != t.shape[0]:
+        t = t.narrow(0, mesh.axis_index(r, "data") * b, b)
+    return t.to(mesh.devices[r])
+
+
+def check_mesh_support(mesh, kind: str = "train") -> None:
     """The meshes the mesh path runs: a mesh of devices over "data" and
-    "model"; to train (``kind`` "train"), every family (dense, MoE, SSM,
-    hybrid, encoder-decoder, frontend); to prefill and decode, the
-    decoder-only families without a frontend: attention (full or
-    sliding-window) and SSM mixers, each with a dense, MoE or no FFN
-    (dense, MoE, SSM and hybrid configs). Encoder-decoder and frontend
-    configs wait for ROADMAP.md §1 item 3."""
+    "model", to train, prefill or decode (``kind``) every family (dense,
+    MoE, SSM, hybrid, encoder-decoder, frontend). A mesh axis beside
+    those two (the multi-pod mesh's "pod") waits for ROADMAP.md §1 item
+    3."""
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"check_mesh_support: kind {kind!r} is not train, "
+                         f"prefill or decode")
     if mesh.devices is None:
         raise ValueError(f"{kind} on a mesh needs its devices "
                          f"(launch.mesh.make_mesh)")
@@ -549,13 +582,3 @@ def check_mesh_support(mesh, kind: str = "train",
         raise NotImplementedError(
             f"mesh axes {sorted(extra)}: the mesh path runs over 'data' and "
             f"'model' only (ROADMAP.md §1 item 3)")
-    if kind == "train":
-        return
-    if kind not in ("prefill", "decode") or cfg is None:
-        raise ValueError(f"check_mesh_support: kind {kind!r} needs a "
-                         f"config (train, prefill or decode)")
-    if cfg.num_encoder_layers or cfg.frontend.kind != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} on a mesh runs the decoder-only families "
-            f"(dense, MoE, SSM, hybrid); encoder-decoder and frontend "
-            f"configs wait for ROADMAP.md §1 item 3")

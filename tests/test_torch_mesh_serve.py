@@ -6,7 +6,7 @@ reference's jitted ``lm.prefill`` / ``lm.decode_step`` under
 port's own ``LM`` with no mesh; the caches' layout and the bytes each
 position holds against the dry-run; one decode step's collective bytes;
 the collectives over several mesh axes; the partial decode attention; and
-what still refuses the mesh.
+what still refuses the mesh (a "pod" axis).
 
 The reference runs in a subprocess started with the module
 (``tests/torch_mesh_ref.py serve``): the reduced llama3-8b (4 heads, 2 kv
@@ -33,8 +33,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from torch_mesh_ref import (SERVE_ARCHS, SERVE_B, SERVE_CASES,  # noqa: E402
-                            SERVE_PROMPT, SERVE_STEPS, serve_case_name,
-                            serve_cfg)
+                            SERVE_PROMPT, SERVE_STEPS, frontend_key,
+                            serve_case_name, serve_cfg, serve_prompt)
 
 import repro_torch.configs as tc  # noqa: E402
 from repro_torch.distributed import spmd  # noqa: E402
@@ -203,22 +203,40 @@ def test_mesh_prefill_and_decode_match_no_mesh(arch, shape, cap):
             torch.testing.assert_close(spmd.gather(g[k]), w[k], **TOL)
 
 
+def batch_of(cfg, src_len=None):
+    """A prefill's zero batch: ``serve_prompt`` tokens and a frontend's
+    embeddings (``src_len`` frames of an encoder's), and the frames the
+    cross caches hold."""
+    key = frontend_key(cfg)
+    batch = {"tokens": torch.zeros((SERVE_B, serve_prompt(cfg)),
+                                   dtype=torch.long)}
+    if key is None:
+        return batch, 0
+    F = src_len or cfg.frontend.num_embeds
+    batch[key] = torch.zeros((SERVE_B, F, cfg.frontend.embed_dim))
+    return batch, (F if key == "src_embeds" else 0)
+
+
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)])
 @pytest.mark.parametrize("arch", [a for a, _ in SERVE_ARCHS]
-                         + ["qwen3-moe-30b-a3b", "mamba2-2.7b"])
+                         + ["qwen3-moe-30b-a3b", "mamba2-2.7b",
+                            "paligemma-3b", "seamless-m4t-medium"])
 def test_placed_bytes_per_position_equal_dryrun(arch, shape):
     """The weights placed under either rule set, the prefill's caches and
     the decode's (after ``caches_for_decode``) hold at each position
     exactly the bytes ``dryrun.tree_bytes_per_device`` counts for the
     config, the mesh and the rules, for the dense configs, an MoE
-    (qwen3-moe) and an SSM (mamba2, whose caches are the conv inputs and
-    the state); the relayout copies what each position lacks, and no more
+    (qwen3-moe), an SSM (mamba2, whose caches are the conv inputs and
+    the state), a frontend (paligemma: one kv head) and an
+    encoder-decoder (seamless, whose cross caches hold its 8 source
+    frames); the relayout copies what each position lacks, and no more
     than its decode pieces."""
     cfg = cfg_of(arch)
     lm = LM(cfg)
     mesh = cpu_mesh(shape)
     params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    cache_specs = lm.cache_specs(SERVE_B, 64)
+    batch, src_len = batch_of(cfg)
+    cache_specs = lm.cache_specs(SERVE_B, 64, src_len)
     for rules in (PREFILL_RULES, DECODE_RULES):
         placed = spmd.place_tree(params, lm.param_axes(), mesh, rules)
         want = dryrun.tree_bytes_per_device(lm.param_structs(),
@@ -227,8 +245,7 @@ def test_placed_bytes_per_position_equal_dryrun(arch, shape):
         # the train layout is the same: one placement serves every cell
         assert spmd.bytes_per_position(spmd.place_tree(
             params, lm.param_axes(), mesh, TRAIN_RULES)) == [want] * mesh.size
-    toks = torch.zeros((SERVE_B, SERVE_PROMPT), dtype=torch.long)
-    _, caches = lm.prefill(placed, {"tokens": toks}, 64, mesh=mesh)
+    _, caches = lm.prefill(placed, batch, 64, mesh=mesh)
     structs = specs_to_structs(cache_specs)
     axes = specs_logical_axes(cache_specs)
     want = {rules: dryrun.tree_bytes_per_device(structs, axes, mesh, rules)
@@ -263,7 +280,18 @@ def test_decode_step_collective_bytes():
     - mamba2 (d_in 128, 16 heads, state 16; tied embeddings): 15,504
       all-reduced (3,232 a layer: 16 for the norm, 1,024 + 1,024 for z
       and x, 256 + 256 for B and C, 128 for dt; 16 for the gated norm's
-      sum of squares and 512 for ``out_proj``) and 4,096 all-gathered."""
+      sum of squares and 512 for ``out_proj``) and 4,096 all-gathered;
+    - paligemma (one kv head of 16, whole on every position; tied
+      embeddings): 23,696 all-reduced (5,280 a layer, llama3's: its k and
+      v partials 256 + 256 and its softmax's 64 + 64 + 1,024 over one kv
+      head of 4 q heads) and 8,192 all-gathered (1,024 a layer: q alone,
+      the new k and v whole already);
+    - seamless (cross-attention over 8 source frames): 32,464
+      all-reduced (7,472 a layer: llama3's 5,280, then 16 for
+      ``ln_cross``, 512 for ``cwq``, 64 + 64 + 1,024 for the cross
+      softmax's merge, 512 for ``cwo``) and 16,384 all-gathered (3,072 a
+      layer: llama3's 2,048 and the cross q's 1,024); the cross caches
+      move nothing."""
     mesh = cpu_mesh((2, 2))
     for arch, want in (
             ("llama3-8b", {"all-reduce": 23696, "all-gather": 12288,
@@ -271,7 +299,12 @@ def test_decode_step_collective_bytes():
             ("qwen3-moe-30b-a3b", {"all-reduce": 40336, "all-gather": 12288,
                                    "reduce-scatter": 0}),
             ("mamba2-2.7b", {"all-reduce": 15504, "all-gather": 4096,
-                             "reduce-scatter": 0})):
+                             "reduce-scatter": 0}),
+            ("paligemma-3b", {"all-reduce": 23696, "all-gather": 8192,
+                              "reduce-scatter": 0}),
+            ("seamless-m4t-medium", {"all-reduce": 32464,
+                                     "all-gather": 16384,
+                                     "reduce-scatter": 0})):
         cfg = cfg_of(arch)
         lm = LM(cfg)
         params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -279,7 +312,7 @@ def test_decode_step_collective_bytes():
         caches = [{k: spmd.zeros(s.shape, torch.float32, s.logical_axes,
                                  mesh, DECODE_RULES)
                    for k, s in layer.items()}
-                  for layer in lm.cache_specs(SERVE_B, 64)]
+                  for layer in lm.cache_specs(SERVE_B, 64, batch_of(cfg)[1])]
         spmd.reset_collective_bytes()
         lm.decode_step(placed, caches, {"token": torch.arange(SERVE_B),
                                         "cache_len": 31}, mesh=mesh)
@@ -416,21 +449,20 @@ def test_partial_decode_attention(dtype):
             torch.testing.assert_close(got, one, atol=1e-6, rtol=1e-6)
 
 
-REFUSED = ("paligemma-3b", "seamless-m4t-medium")
-
-
-@pytest.mark.parametrize("arch", REFUSED)
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b",
+                                  "paligemma-3b", "seamless-m4t-medium"])
 def test_other_families_refuse_the_serving_mesh(arch):
-    """Frontend and encoder-decoder configs raise on the prefill and
-    decode mesh paths, naming the ROADMAP item that ports them (the MoE,
-    SSM and hybrid families run there:
-    ``tests/test_torch_mesh_serve_families.py``)."""
+    """Every family prefills and decodes on a (data, model) mesh (the
+    MoE, SSM and hybrid families: ``tests/test_torch_mesh_serve_families.
+    py``; the frontend and encoder-decoder families:
+    ``tests/test_torch_mesh_serve_encdec.py``); a mesh with a "pod" axis
+    beside those two raises on both paths, for every family, naming the
+    ROADMAP item that ports it."""
     cfg = dataclasses.replace(tc.get_config(arch).reduced(), dtype="float32")
     lm = LM(cfg)
-    mesh = cpu_mesh((2, 2))
+    mesh = make_mesh((1, 2, 2), ("pod", "data", "model"), "cpu")
     with pytest.raises(NotImplementedError, match="item 3"):
-        lm.prefill({}, {"tokens": torch.zeros((4, 8), dtype=torch.long)},
-                   16, mesh=mesh)
+        lm.prefill({}, batch_of(cfg)[0], 16, mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 3"):
         lm.decode_step({}, [], {"token": torch.zeros(4, dtype=torch.long),
                                 "cache_len": 3}, mesh=mesh)
@@ -440,8 +472,9 @@ def test_inspector_traces_a_mesh_prefill(monkeypatch, capsys):
     """``inspect_hlo --mesh 2,2`` on a prefill cell of the reduced
     gemma3-1b: flash at each position's heads, the caches built, four
     position lines with their all-gathers (the heads gathered for the
-    caches, the logits) and all-reduces; and on a decode cell of the
-    reduced qwen3-moe (one layer, the inspector's one period): four
+    caches, the logits) and all-reduces; and on decode cells of the
+    reduced qwen3-moe and seamless (one layer each, the inspector's one
+    period; seamless's cross caches over its 8 source frames): four
     position lines, each with the bytes ``serve_mesh_decode_bytes``
     derives from the shapes."""
     orig = tc.get_config
@@ -467,6 +500,18 @@ def test_inspector_traces_a_mesh_prefill(monkeypatch, capsys):
     cfg = dryrun.depth_variant(tc.get_config("qwen3-moe-30b-a3b"), 1, 1)
     want = chip_smoke.serve_mesh_decode_bytes(cfg, 2, 2, 4)
     assert want == {"all-reduce": 6896, "all-gather": 3072,
+                    "reduce-scatter": 0}
+    coll = [ln for ln in out if ln.startswith("# position")]
+    assert len(coll) == 4
+    assert all(f"collective bytes {want}," in ln for ln in coll), coll
+    assert inspect_hlo.main(["--arch", "seamless-m4t-medium", "--shape",
+                             "d", "--mesh", "2,2", "--device", "cpu",
+                             "--top", "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("# seamless-m4t-medium d periods=1")
+    cfg = dryrun.depth_variant(tc.get_config("seamless-m4t-medium"), 1, 1)
+    want = chip_smoke.serve_mesh_decode_bytes(cfg, 2, 2, 4)
+    assert want == {"all-reduce": 6208, "all-gather": 3584,
                     "reduce-scatter": 0}
     coll = [ln for ln in out if ln.startswith("# position")]
     assert len(coll) == 4

@@ -46,7 +46,7 @@ from repro_torch.distributed.sharding import TRAIN_RULES  # noqa: E402
 from repro_torch.launch import dryrun, inspect_hlo  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
-from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.models.lm import LM, check_mesh_support  # noqa: E402
 from repro_torch.models.params import (from_jax_lm_params,  # noqa: E402
                                        init_lm_params)
 from repro_torch.optimizer import adamw  # noqa: E402
@@ -424,24 +424,41 @@ def test_launcher_resume_onto_another_mesh(tmp_path, capsys):
     np.testing.assert_allclose(other, losses[2:], rtol=BF16_RTOL)
 
 
-def test_other_families_on_a_mesh_name_item_3():
+def test_other_families_on_a_mesh_name_item_3(monkeypatch, capsys):
     """Every family trains on a (data, model) mesh
-    (``tests/test_torch_mesh_families.py``), and the dense decoder
-    families prefill and decode on one (``tests/test_torch_mesh_serve.py``),
-    and so do the MoE, SSM and hybrid families
-    (``tests/test_torch_mesh_serve_families.py``); what still raises names
+    (``tests/test_torch_mesh_families.py``), and prefills and decodes on
+    one (``tests/test_torch_mesh_serve.py``,
+    ``tests/test_torch_mesh_serve_families.py``,
+    ``tests/test_torch_mesh_serve_encdec.py``); what still raises names
     the ROADMAP item that ports it: a mesh axis beside "data" and "model",
-    for each of the other families, and the inspector's ``--mesh`` on a
-    frontend config's prefill cell."""
+    for each of the other families, to train, prefill or decode, and the
+    inspector's ``--mesh`` with a "pod" axis on a frontend config's
+    prefill cell; on a (data, model) mesh the reduced paligemma's prefill
+    cell runs there."""
     mesh = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
     for arch in ("mamba2-2.7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium", "paligemma-3b"):
         with pytest.raises(NotImplementedError, match="item 3"):
             steplib.make_train_step(LM(cfg_of(arch)), adamw.AdamWConfig(),
                                     mesh=mesh)
+        for kind in ("prefill", "decode"):
+            with pytest.raises(NotImplementedError, match="item 3"):
+                check_mesh_support(mesh, kind)
+    orig = tc.get_config
+    monkeypatch.setattr(tc, "get_config", lambda a: orig(a).reduced())
+    monkeypatch.setattr(tc, "SHAPES",
+                        {"p": tc.ShapeConfig("p", 32, 4, "prefill")})
     with pytest.raises(NotImplementedError, match="item 3"):
-        inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "prefill_32k",
-                          "--mesh", "2,2", "--device", "cpu"])
+        inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "p",
+                          "--mesh", "1,2,2", "--device", "cpu"])
+    assert inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "p",
+                             "--mesh", "2,2", "--device", "cpu", "--top",
+                             "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("# paligemma-3b p periods=1")
+    coll = [ln for ln in out if ln.startswith("# position")]
+    assert len(coll) == 4
+    assert all("'all-gather': 0," not in ln for ln in coll)
 
 
 def test_mesh_on_cuda_without_the_cards_gives_the_recipe():
@@ -482,18 +499,20 @@ def test_inspector_traces_a_mesh_step(monkeypatch, capsys):
     assert len(coll) == 4
     assert all("'all-reduce'" in ln and "'all-reduce': 0," not in ln
                for ln in coll)
-    # so does an SSM's; a frontend config's does not, and names the item
-    # that ports it
-    assert inspect_hlo.main(["--arch", "mamba2-2.7b", "--shape", "d",
-                             "--mesh", "2,2", "--device", "cpu", "--top",
-                             "5"]) == 0
-    out = capsys.readouterr().out.splitlines()
-    coll = [ln for ln in out if ln.startswith("# position")]
-    assert len(coll) == 4
-    assert all("'all-reduce': 0," not in ln for ln in coll)
+    # so do an SSM's and a frontend config's; a mesh with a "pod" axis
+    # does not, and names the item that ports it
+    for arch in ("mamba2-2.7b", "paligemma-3b"):
+        assert inspect_hlo.main(["--arch", arch, "--shape", "d", "--mesh",
+                                 "2,2", "--device", "cpu", "--top",
+                                 "5"]) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith(f"# {arch} d periods=1")
+        coll = [ln for ln in out if ln.startswith("# position")]
+        assert len(coll) == 4
+        assert all("'all-reduce': 0," not in ln for ln in coll)
     with pytest.raises(NotImplementedError, match="item 3"):
         inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "d", "--mesh",
-                          "2,2", "--device", "cpu"])
+                          "1,2,2", "--device", "cpu"])
 
 
 def test_inspector_traces_a_mamba2_mesh_step(monkeypatch, capsys):

@@ -1,7 +1,8 @@
 """The reference's runs on a (data, model) mesh, for the port's mesh tests
 (``tests/test_torch_moe_ep.py``, ``tests/test_torch_mesh_train.py``,
 ``tests/test_torch_mesh_families.py``, ``tests/test_torch_mesh_serve.py``,
-``tests/test_torch_mesh_serve_families.py``).
+``tests/test_torch_mesh_serve_families.py``,
+``tests/test_torch_mesh_serve_encdec.py``).
 
 Run in a process of its own, with four XLA host devices forced before jax
 loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
@@ -11,6 +12,7 @@ loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
     python tests/torch_mesh_ref.py families OUT.pkl
     python tests/torch_mesh_ref.py serve OUT.pkl
     python tests/torch_mesh_ref.py serve_families OUT.pkl
+    python tests/torch_mesh_ref.py serve_encdec OUT.pkl
 
 It pickles numpy trees. The mesh is a ``jax.sharding.Mesh`` over the
 devices, whose axes are Auto: the reference's sharding constraints run
@@ -69,6 +71,62 @@ SERVE_FAMILY_CASES = (("qwen3-moe-30b-a3b", (2, 2), 64, {}),
                        {"ssm": dict(expand=3, head_dim=64)}),
                       ("jamba-1.5-large-398b", (2, 2), 62,
                        {"num_layers": 8}))
+
+
+# prefill and decode of the frontend and encoder-decoder families: reduced
+# configs in fp32 with SERVE_B and SERVE_STEPS at capacity 64 on (2, 2),
+# (1, 4) and (4, 1): paligemma's 8 image embeddings, then 20 tokens;
+# seamless's 28 tokens over 8 source frames, and over 6 on (2, 2), which
+# the decode's split of the cross caches' frames over four positions does
+# not divide. Every decode writes slots 28-33, across the piece boundary
+# at 32
+SERVE_ENCDEC_CASES = tuple((arch, shape, None)
+                           for arch in ("paligemma-3b", "seamless-m4t-medium")
+                           for shape in ((2, 2), (1, 4), (4, 1))) + (
+    ("seamless-m4t-medium", (2, 2), 6),)
+SERVE_ENCDEC_CAP = 64
+
+
+def serve_encdec_name(arch, shape, frames):
+    tag = f"+{frames}frames" if frames else ""
+    return f"{arch}{tag}@{shape[0]}x{shape[1]}"
+
+
+def serve_encdec_cfg(rc, arch, frames):
+    """The reduced fp32 config of a ``SERVE_ENCDEC_CASES`` entry, with
+    ``frames`` frontend embeddings where given."""
+    cfg = dataclasses.replace(rc.get_config(arch).reduced(),
+                              dtype="float32")
+    if frames:
+        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
+            cfg.frontend, num_embeds=frames))
+    return cfg
+
+
+def frontend_key(cfg):
+    """The batch key of a config's frontend embeddings: ``embeds`` ahead
+    of a decoder's tokens, an encoder's ``src_embeds``, or None."""
+    if cfg.frontend.kind == "none":
+        return None
+    return "src_embeds" if cfg.num_encoder_layers else "embeds"
+
+
+def serve_prompt(cfg):
+    """The prompt's tokens: ``SERVE_PROMPT`` less a decoder's frontend
+    embeddings, so that every config's decode steps write slots
+    ``SERVE_PROMPT`` onwards (their ``cache_len``)."""
+    return SERVE_PROMPT - (cfg.frontend.num_embeds
+                           if frontend_key(cfg) == "embeds" else 0)
+
+
+def serve_embeds(cfg):
+    """A frontend's embeddings (SERVE_B, F, e) in fp32 from numpy seed 0,
+    or None."""
+    if frontend_key(cfg) is None:
+        return None
+    return np.random.default_rng(0).standard_normal(
+        (SERVE_B, cfg.frontend.num_embeds, cfg.frontend.embed_dim)
+    ).astype(np.float32)
 
 
 def serve_family_name(arch, shape, cap, over):
@@ -253,39 +311,52 @@ def family_runs():
     return out
 
 
-def _serve_case(lm, params, toks, shape, cap):
+def _serve_case(lm, params, toks, shape, cap, embeds=None):
     """One prefill under ``PREFILL_RULES`` and ``SERVE_STEPS`` decode
     steps under ``DECODE_RULES`` on ``auto_mesh(shape)``: the prefill's
     logits and caches, each step's logits, the last caches; and the first
     line of the error the ``shard_map`` replication check raised, where it
     did (the run then repeats without the check, which changes no
-    value)."""
+    value). ``embeds``: a frontend's embeddings (``serve_embeds``), laid
+    out by their logical axes in ``repro.models.api.batch_specs``; the
+    prompt is ``serve_prompt`` tokens, and the caches hold an encoder's
+    frames."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
+    from repro.configs.base import ShapeConfig
     from repro.distributed.sharding import (DECODE_RULES, PREFILL_RULES,
                                             pspec_for, sharding_ctx)
     from repro.launch.dryrun import _axes_leaf
+    from repro.models.api import batch_specs
     from repro.models.common import specs_logical_axes
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     mesh = auto_mesh(shape)
+    key, plen = frontend_key(lm.cfg), serve_prompt(lm.cfg)
 
     def shardings(axes, rules):
         return jax.tree.map(lambda a: NamedSharding(
             mesh, pspec_for(a[0] or (), mesh, rules, a[1])),
             axes, is_leaf=_axes_leaf)
-    cache_axes = specs_logical_axes(lm.cache_specs(SERVE_B, cap))
+    batch = {"tokens": toks[:, :plen]}
+    batch_axes = {"tokens": (("batch", None), batch["tokens"].shape)}
+    src_len = 0
+    if key is not None:
+        spec = batch_specs(lm.cfg, ShapeConfig("p", SERVE_PROMPT, SERVE_B,
+                                               "prefill"))[key]
+        batch[key] = embeds
+        batch_axes[key] = (spec.logical_axes, embeds.shape)
+        src_len = embeds.shape[1] if key == "src_embeds" else 0
+    cache_axes = specs_logical_axes(lm.cache_specs(SERVE_B, cap, src_len))
 
     def run():
         with sharding_ctx(mesh, PREFILL_RULES):
             prefill = jax.jit(
                 lambda p, b: lm.prefill(p, b, cap),
                 in_shardings=(shardings(lm.param_axes(), PREFILL_RULES),
-                              shardings({"tokens": (("batch", None), (
-                                  SERVE_B, SERVE_PROMPT))},
-                                  PREFILL_RULES)))
+                              shardings(batch_axes, PREFILL_RULES)))
             logits, caches = prefill(
-                params, {"tokens": jnp.asarray(toks[:, :SERVE_PROMPT])})
+                params, {k: jnp.asarray(v) for k, v in batch.items()})
         case = {"prefill": np.asarray(logits),
                 "prefill_caches": to_np(caches), "decode": []}
         with sharding_ctx(mesh, DECODE_RULES):
@@ -298,7 +369,7 @@ def _serve_case(lm, params, toks, shape, cap):
                                     shardings(cache_axes, DECODE_RULES))
             for i in range(SERVE_STEPS):
                 logits, caches = step(params, caches, {
-                    "token": jnp.asarray(toks[:, SERVE_PROMPT + i]),
+                    "token": jnp.asarray(toks[:, plen + i]),
                     "cache_len": jnp.asarray(SERVE_PROMPT + i,
                                              jnp.int32)})
                 case["decode"].append(np.asarray(logits))
@@ -361,11 +432,32 @@ def serve_family_runs():
     return out
 
 
+def serve_encdec_runs():
+    """``serve_runs`` for ``SERVE_ENCDEC_CASES``: the frontend's
+    embeddings or the encoder's source frames in the prefill's batch,
+    each case from ``PRNGKey(0)`` weights."""
+    import jax
+    import repro.configs as rc
+    from repro.models.lm import LM
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    out = {}
+    for arch, shape, frames in SERVE_ENCDEC_CASES:
+        cfg = serve_encdec_cfg(rc, arch, frames)
+        lm = LM(cfg)
+        params = lm.init(jax.random.PRNGKey(0))
+        toks, embeds = serve_tokens(cfg), serve_embeds(cfg)
+        case = _serve_case(lm, params, toks, shape, SERVE_ENCDEC_CAP, embeds)
+        case.update(params=to_np(params), tokens=toks, embeds=embeds)
+        out[serve_encdec_name(arch, shape, frames)] = case
+    return out
+
+
 if __name__ == "__main__":
     what, path = sys.argv[1], sys.argv[2]
     res = (moe_runs() if what == "moe" else family_runs()
            if what == "families" else serve_runs() if what == "serve"
            else serve_family_runs() if what == "serve_families"
+           else serve_encdec_runs() if what == "serve_encdec"
            else train_runs(sys.argv[3:]))
     with open(path, "wb") as fh:
         pickle.dump(res, fh)
