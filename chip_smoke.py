@@ -99,7 +99,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    subprocesses ``python -m repro_torch.launch.inspect_hlo --arch
    llama3-8b --shape decode_32k --periods 1`` and, alongside it, ``python
    -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k --mesh
-   both``, each of which must exit 0;
+   both`` (bytes, FLOPs, and the collective bytes counted over 256 and 512
+   meta positions), each of which must exit 0;
 14. tensor parallelism (target 90 s): (a) llama3-8b at full width in
    bf16, cut to ``TP_DEPTH`` (4) of its 32 layers, at tp=1 and at tp=2
    with both shards on the card (``device=["cuda:0", "cuda:0"]``), phase
@@ -141,8 +142,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    256);
 16. the SSM, hybrid, frontend and encoder-decoder families on a mesh
    (target 90 s; cell S11), four shards stacked on the card: (a)
-   mamba2-2.7b at full width and ``MESH_FAMILY_DEPTH`` (16) of its 64
-   layers (d_in 5120, 80 heads, 40 a model shard; phase 18 serves all 64)
+   mamba2-2.7b at full width and ``MESH_FAMILY_DEPTH`` (8) of its 64
+   layers (d_in 5120, 80 heads, 40 a model shard; phase 18 serves 16)
    through the launcher
    with no mesh and with ``--mesh 2,2 --device
    cuda:0,cuda:0,cuda:0,cuda:0``, seeded bf16 weights,
@@ -170,10 +171,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1, 256) causal, seamless (8, 8, 64) non-causal and cross-attention)
    and ``FlashAttention``'s gradient at seamless's encoder shard;
 17. prefill and decode on a mesh (target 60 s; cell S12), four positions
-   stacked on the card: (a) llama3-8b at full width and depth, seeded
-   bf16 weights (seed 0) placed on (2, 2) beside a copy with no mesh; 4
-   prompts of 1,016 tokens (numpy seed 13) prefilled at capacity 4,096
-   under ``PREFILL_RULES`` (flash at each position's 16 q heads: 32 x 4
+   stacked on the card: (a) llama3-8b at full width, 8 of its 32 layers
+   (``SERVE_MESH_DEPTH``), seeded bf16 weights (seed 0)
+   placed on (2, 2) beside a copy with no mesh; 4 prompts of 1,016
+   tokens (numpy seed 13) prefilled at capacity 4,096 under
+   ``PREFILL_RULES`` (flash at each position's 16 q heads: 8 x 4
    launches, counted), the caches moved to ``DECODE_RULES`` (their
    sequence over the whole grid, four pieces of 1,024), 32 greedy decode
    steps across the piece boundary at slot 1,024, against the same with
@@ -193,12 +195,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (cell S13), four positions stacked on the card, each as phase 17 (a)
    (prompts, capacity, greedy steps against no mesh, bytes == the
    dry-run's, a traced decode step, collective bytes ==
-   ``serve_mesh_decode_bytes``): (a) mamba2-2.7b at full width and depth
-   (its conv and state caches on their channels and heads), in fp32 for
-   8 steps (logits within ``SERVE_FP32_TOL`` of no mesh), then in bf16
-   for 32, held within twice bf16's own gap to fp32 with no mesh
-   (``floor_hold``: at 64 random layers that gap is 0.13 of the largest
-   logit, past ``CONTINUITY_TOL``); (b) qwen3-moe-30b-a3b at full width
+   ``serve_mesh_decode_bytes``): (a) mamba2-2.7b at full width, 16 of its
+   64 layers (``SERVE_SSM_DEPTH``; its conv and state caches
+   on their channels and heads), in fp32 for 8 steps (logits within
+   ``SERVE_FP32_TOL`` of no mesh), then in bf16 for 32, held within twice
+   bf16's own gap to fp32 with no mesh (``floor_hold``: at 64 random
+   layers that gap was 0.13 of the largest logit, past
+   ``CONTINUITY_TOL``); (b) qwen3-moe-30b-a3b at full width
    and 12 of its 48 layers (flash at each position's 16 q heads,
    counted; each side's dropped expert assignments printed), held alike
    at the capacity factor E / top_k where no expert drops a token, then
@@ -219,7 +222,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (counted); (c) the reduced paligemma and seamless (and seamless over 6
    frames, whose cross caches keep their frames whole in the decode) in
    fp32 on (2, 2), (1, 4) and (4, 1) on the card against the CPU (1e-5
-   relative).
+   relative);
+20. the multi-pod mesh ("pod", "data", "model") = (2, 2, 2) (cell S15;
+   budget 60 s), its eight positions stacked on the card: (a) gemma3-1b
+   at full width and depth trains 3 steps of phase 12's data (4 x 1,024
+   in one microbatch: a row a (pod, data) position, int8 moments)
+   against no mesh and (2, 2): losses within 1e-3, the state after 3
+   steps within 0.1 a leaf (the drawn state must fail it), bytes a
+   position == the dry-run's, each position's collective bytes == the
+   dry-run's count of the same step over meta positions; (b) gemma3-1b's
+   prefill of 4 x 1,016 tokens and greedy decode steps across the cache's
+   piece boundary as phase 17 (a), 9 in fp32 then 16 in bf16, against no
+   mesh (``SERVE_FP32_TOL``, then ``CONTINUITY_TOL``), the
+   prefill's and a decode step's collective bytes == the meta count,
+   every position's logits (both pods') equal bit for bit; (c), run
+   first, ``examples/torch/serve_small_real.py`` on the card as a
+   subprocess: exit 0, "lossless ✓", while the script makes the dry-run's
+   meta counts that (a) and (b) are held to; (a) and (b) run with nothing
+   beside them.
 
 It prints a JSON line of kernel results (each with its launches per
 main path), then the card's name and power limit, and last ``{"ok":
@@ -230,7 +250,7 @@ JAX package.
 phase 4's times as one JSON line ``{"timing": {...}}``: the quick way to
 compare two trees' kernels on one card (run each tree's copy of the
 script in turn, within one machine). ``--phase N`` (N in 14, 16, 17,
-18, 19) runs phases 1, 2 and phase N alone; ``scripts/phase_budget.py``
+18, 19, 20) runs phases 1, 2 and phase N alone; ``scripts/phase_budget.py``
 times the phases whose depth was cut, before and after the cut, beside
 the last phase added.
 """
@@ -2078,7 +2098,8 @@ def tooling_phase(torch):
     scales) with its peak memory growth below one (shard's) pool's bytes,
     the out-of-place control caught; (b) the roofline of one S1 decode iteration; (c) the inspector
     on llama3-8b decode_32k at one layer (B 128 over 32,768 positions) as a
-    subprocess; (d) the dry-run of llama3-405b train_4k on both meshes as a
+    subprocess; (d) the dry-run of llama3-405b train_4k on both meshes
+    (bytes, FLOPs, collective bytes, the single pod's roofline) as a
     subprocess, alongside (c). Returns the kernel launches of (a) and
     (b)."""
     from repro_torch.configs import ServingConfig, get_config
@@ -2903,11 +2924,10 @@ def fp32_states_apart(got, want, first_grads, opt):
     return mom, worst(off_rest), worst(flat_gap), flat_apart, seen
 
 
-# phase 16 (a)'s depth: 16 of mamba2-2.7b's 64 layers at full width (the
+# phase 16 (a)'s depth: 8 of mamba2-2.7b's 64 layers at full width (the
 # script passed 900 s of its 1200 s on a slow host once phase 18 came, so
-# 32; 16 to make room for phase 19, scripts/phase_budget.py; phase 18 (a)
-# serves mamba2 at its full depth)
-MESH_FAMILY_DEPTH = 16
+# 32; 16 to make room for phase 19, 8 for phase 20, scripts/phase_budget.py)
+MESH_FAMILY_DEPTH = 8
 
 
 def mesh_families_phase(torch):
@@ -3381,6 +3401,7 @@ def greedy_run(torch, lm, params, toks, cap, steps, mesh=None,
     sync = torch.cuda.synchronize
     sync()
     before = ops.launch_counts()["flash_attention"]
+    spmd.reset_collective_bytes()
     t0 = time.perf_counter()
     if prefill_rows:
         parts = [lm.prefill(params, {k: t[i:i + prefill_rows] for k, t in
@@ -3397,7 +3418,9 @@ def greedy_run(torch, lm, params, toks, cap, steps, mesh=None,
     res = dict(prefill_s=time.perf_counter() - t0,
                flash=ops.launch_counts()["flash_attention"] - before)
     if mesh is not None:
-        logits = logits[0]
+        res["prefill_coll"] = [spmd.collective_bytes(r)
+                               for r in range(mesh.size)]
+        logits = same_everywhere(torch, logits, mesh)
         res["prefill_cache_bytes"] = spmd.bytes_per_position(caches)
         spmd.reset_collective_bytes()
         t0 = time.perf_counter()
@@ -3412,12 +3435,46 @@ def greedy_run(torch, lm, params, toks, cap, steps, mesh=None,
     for i in range(steps):
         z, caches = lm.decode_step(params, caches, {
             "token": tok, "cache_len": offset + S + i}, mesh=mesh)
-        out.append((z[0] if mesh is not None else z).float())
+        out.append((same_everywhere(torch, z, mesh) if mesh is not None
+                    else z).float())
         tok = out[-1].argmax(-1)
     sync()
     res.update(step_s=(time.perf_counter() - t0) / steps, logits=out,
                caches=caches)
     return res
+
+
+def meta_serve_collectives(cfg, mesh, B, plen, cap):
+    """The collective bytes a position that ``serve_mesh_full``'s prefill
+    (B prompts of ``plen`` tokens at capacity ``cap``, ``PREFILL_RULES``)
+    and one decode step (``DECODE_RULES``) count, from the dry-run's run
+    of the same steps over meta positions of ``mesh``'s axes
+    (``launch/dryrun.py::count_collectives``): {"prefill": [...],
+    "decode": [...], "count_s": seconds}."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import DECODE_RULES, PREFILL_RULES
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import make_step_bundle
+    pre = make_step_bundle(cfg, ShapeConfig("prefill", plen, B, "prefill"))
+    pre.static_meta["capacity"] = cap
+    dec = make_step_bundle(cfg, ShapeConfig("decode", cap, B, "decode"))
+    counts = [dryrun.count_collectives(b, cfg, mesh, rules)
+              for b, rules in ((pre, PREFILL_RULES), (dec, DECODE_RULES))]
+    return {"prefill": counts[0]["per_position"],
+            "decode": counts[1]["per_position"],
+            "count_s": sum(c["count_s"] for c in counts)}
+
+
+def same_everywhere(torch, zs, mesh):
+    """Position 0's logits of a mesh step; on a multi-pod mesh, which
+    computes the same step in every pod, every position's first, held
+    equal to it bit for bit."""
+    if "pod" in mesh.shape:
+        for r, z in enumerate(zs):
+            if not torch.equal(z, zs[0]):
+                raise AssertionError(f"position {r}'s logits differ from "
+                                     f"position 0's")
+    return zs[0]
 
 
 def streams_agree(torch, want, got, label, tol=CONTINUITY_TOL,
@@ -3474,7 +3531,7 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
                     tag="serve mesh (a)", dtype=None, floor=None,
                     detail=True, steps=32, tol=CONTINUITY_TOL,
                     prefill_rows=None, capacity_factor=None,
-                    routed=False):
+                    routed=False, mesh_shape=(2, 2), meta=None):
     """Phase 17 (a): llama3-8b at full width and depth, seeded bf16
     weights (``init_lm_params``, seed 0, as phase 5 draws them), placed on
     a (2, 2) mesh over ``devices`` beside a copy with no mesh; 4 prompts
@@ -3503,7 +3560,13 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
     of the config's; at E / top_k or more no expert can drop a token, and
     a drop on either side fails. ``tol=None``: the logits' gap is
     reported, not held. ``routed``: an MoE held row by row up to its
-    first token routed to other experts (``routed_agree``)."""
+    first token routed to other experts (``routed_agree``).
+    ``mesh_shape``: (P, D, M) puts the positions on the multi-pod mesh
+    (phase 20): every position's logits then equal bit for bit, and the
+    prefill's and a decode step's collective bytes a position equal the
+    dry-run's count of the same steps on meta positions
+    (``meta_serve_collectives``; ``meta``: that count, made
+    beforehand)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.distributed import spmd
@@ -3539,7 +3602,9 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
         if F else {})
     params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(
         0), "cuda")
-    mesh = make_mesh((2, 2), ("data", "model"), list(devices))
+    mesh = make_mesh(mesh_shape, ("pod", "data", "model")[-len(mesh_shape):],
+                     list(devices))
+    pod = "pod" in mesh.shape
     t0 = time.perf_counter()
     placed = spmd.place_tree(params, lm.param_axes(), mesh, PREFILL_RULES)
     place_s = time.perf_counter() - t0
@@ -3580,9 +3645,10 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
         f"move to the decode layout (dry-run {want['decode'][1]:.0f}), "
         f"which copied {got['moved']} B a position in "
         f"{got['relayout_s'] * 1e3:.1f} ms; weights placed in {place_s:.2f} s")
-    if not (held == [want["prefill"][0]] * 4 == [want["decode"][0]] * 4
-            and got["prefill_cache_bytes"] == [want["prefill"][1]] * 4
-            and got["decode_cache_bytes"] == [want["decode"][1]] * 4):
+    n = mesh.size
+    if not (held == [want["prefill"][0]] * n == [want["decode"][0]] * n
+            and got["prefill_cache_bytes"] == [want["prefill"][1]] * n
+            and got["decode_cache_bytes"] == [want["decode"][1]] * n):
         raise AssertionError(f"{tag} {label}: bytes a position "
                              f"differ from the dry-run's")
     # every self-, encoder and cross-attention layer launches flash once
@@ -3596,6 +3662,18 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
             B // (prefill_rows or B)):
         raise AssertionError(f"{tag} {label}: flash launched "
                              f"{got['flash']} times, not {n_flash}")
+    if pod and meta is None:
+        meta = meta_serve_collectives(cfg, mesh, B, plen, cap)
+    if pod:
+        log(f"{tag} {label}: the prefill's collective bytes a position "
+            f"{got['prefill_coll'][0]} (the dry-run's meta count "
+            f"{meta['prefill'][0]}, in {meta['count_s']:.2f} s for both "
+            f"steps); every position's logits equal bit for bit, both pods' "
+            f"alike, in the prefill and each of the {steps} steps")
+        if got["prefill_coll"] != meta["prefill"]:
+            raise AssertionError(f"{tag} {label}: prefill collective bytes "
+                                 f"{got['prefill_coll']} differ from the "
+                                 f"meta count {meta['prefill']}")
     if cfg.moe is not None:
         if cfg.moe.capacity_factor * cfg.moe.top_k >= cfg.moe.num_experts \
                 and any(sum(d) for d in drops.values()):
@@ -3658,7 +3736,9 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     coll = [spmd.collective_bytes(r) for r in range(mesh.size)]
-    pred = serve_mesh_decode_bytes(cfg, 2, 2, B)
+    pred = (meta["decode"] if pod else
+            [serve_mesh_decode_bytes(cfg, mesh.shape["data"],
+                                     mesh.shape["model"], B)] * mesh.size)
     rows = top_ops(prof, mesh.devices[0])
     busy = sum(ms for ms, _ in rows.values())
     tops = sorted(rows.items(), key=lambda kv: -kv[1][0])[:6]
@@ -3680,15 +3760,17 @@ def serve_mesh_full(torch, devices, label, arch="llama3-8b", layers=None,
         f" of wall); top device operations (ms, calls): "
         + "; ".join(f"{n[:60]} {ms:.2f} ({c})" for n, (ms, c) in tops))
     log(f"{tag} {label}: collective bytes a position a decode step "
-        f"{coll} (predicted from the shapes {pred}); roofline a position: "
+        f"{coll[0]} (" + ("the dry-run's meta count" if pod else
+                          "predicted from the shapes") + f" {pred[0]}; "
+        f"equal at all {mesh.size} positions); roofline a position: "
         f"FLOPs {flops:.4e}, bytes {mem['total']:.4e}, compute "
         f"{terms['compute_s'] * 1e3:.4f} ms, memory "
         f"{terms['memory_s'] * 1e3:.4f} ms, collective "
         f"{terms['collective_s'] * 1e3:.4f} ms ({terms['bottleneck']}); "
         f"peak memory {peaks} B (the no-mesh copy and its caches included)")
-    if any(c != pred for c in coll):
+    if coll != pred:
         raise AssertionError(f"{tag} {label}: collective bytes "
-                             f"{coll} differ from the shapes' {pred}")
+                             f"{coll} differ from the prediction {pred}")
     del params, placed, caches
     gc.collect()
     torch.cuda.empty_cache()
@@ -3787,19 +3869,24 @@ def serve_mesh_reduced(torch, cases=SERVE_MESH_REDUCED,
                                  f"({rel})")
 
 
+# phase 17 (a)'s depth: 8 of llama3-8b's 32 layers at full width (cut
+# from 32 to make room for phase 20, scripts/phase_budget.py)
+SERVE_MESH_DEPTH = 8
+
+
 def serve_mesh_phase(torch):
     """Prefill and decode on a (data, model) mesh (cell S12; target 60 s):
-    (a) llama3-8b at full width and depth on (2, 2) stacked on the card
-    against no mesh (``serve_mesh_full``), (b) the reduced fp32 configs on
-    three meshes, card against CPU (``serve_mesh_reduced``), (c) (a) over
-    four cards where the machine has them. Returns the phase's kernel
-    launches."""
+    (a) llama3-8b at full width, ``SERVE_MESH_DEPTH`` of its layers, on
+    (2, 2) stacked on the card against no mesh (``serve_mesh_full``), (b)
+    the reduced fp32 configs on three meshes, card against CPU
+    (``serve_mesh_reduced``), (c) (a) over four cards where the machine
+    has them. Returns the phase's kernel launches."""
     from repro_torch.kernels import ops
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    serve_mesh_full(torch, MESH_STACK, "stacked")
+    serve_mesh_full(torch, MESH_STACK, "stacked", layers=SERVE_MESH_DEPTH)
     log(f"phase 17 (a) wall: {time.perf_counter() - t_phase:.2f} s")
     t0 = time.perf_counter()
     serve_mesh_reduced(torch)
@@ -3808,7 +3895,7 @@ def serve_mesh_phase(torch):
     if n >= 4:
         t0 = time.perf_counter()
         serve_mesh_full(torch, [f"cuda:{i}" for i in range(4)],
-                        "over four cards")
+                        "over four cards", layers=SERVE_MESH_DEPTH)
         log(f"phase 17 (c) wall: {time.perf_counter() - t0:.2f} s")
     else:
         log(f"phase 17 (c) not run: it needs four cards, torch sees {n} "
@@ -3829,16 +3916,20 @@ SERVE_FP32_TOL = 1e-3
 # (8.1 B parameters, 16.2 GB in bf16): the stacked shards, a no-mesh copy
 # and the caches fit one card
 SERVE_MOE_DEPTH = 12
+# phase 18 (a)'s depth: 16 of mamba2-2.7b's 64 layers at full width (cut
+# from 64 to make room for phase 20, scripts/phase_budget.py)
+SERVE_SSM_DEPTH = 16
 
 
 def serve_mesh_families_phase(torch):
     """Prefill and decode of the MoE, SSM and hybrid families on a (data,
     model) mesh (cell S13), four positions stacked on the card, each as
     phase 17 (a) (``serve_mesh_full``). (a) mamba2-2.7b at full width and
-    depth (tied embeddings; its conv and state caches on their channels
-    and heads): first in fp32 for 8 steps, held within ``SERVE_FP32_TOL``
-    of no mesh, then in bf16 for 32, held within twice the gap of no mesh
-    in bf16 to no mesh in fp32 (``floor_hold``). (b) qwen3-moe-30b-a3b at
+    ``SERVE_SSM_DEPTH`` of its 64 layers (tied embeddings; its conv and
+    state caches on their channels and heads): first in fp32 for 8 steps,
+    held within ``SERVE_FP32_TOL`` of no mesh, then in bf16 for 32, held
+    within twice the gap of no mesh in bf16 to no mesh in fp32
+    (``floor_hold``). (b) qwen3-moe-30b-a3b at
     full width and ``SERVE_MOE_DEPTH`` layers (flash at each position's 16
     q heads; each side's dropped assignments): at the capacity factor E /
     top_k, where no expert drops a token, in fp32 for 8 steps within
@@ -3861,11 +3952,13 @@ def serve_mesh_families_phase(torch):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     exact = serve_mesh_full(torch, MESH_STACK, "stacked", arch="mamba2-2.7b",
+                            layers=SERVE_SSM_DEPTH,
                             tag="serve families (a) fp32", dtype="float32",
                             detail=False, steps=8,
                             tol=SERVE_FP32_TOL)["no_mesh"]
     serve_mesh_full(torch, MESH_STACK, "stacked", arch="mamba2-2.7b",
-                    tag="serve families (a)", floor=exact)
+                    layers=SERVE_SSM_DEPTH, tag="serve families (a)",
+                    floor=exact)
     log(f"phase 18 (a) wall: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     from repro_torch.configs import get_config
@@ -3929,8 +4022,225 @@ def serve_mesh_encdec_phase(torch):
     return launches
 
 
+# --------------------------------------------------------------- phase 20
+
+# the multi-pod mesh (pod, data, model), all eight positions on the card
+POD_SHAPE = (2, 2, 2)
+POD_STACK = ["cuda:0"] * 8
+
+
+def pod_meta_counts():
+    """The dry-run's counts over meta positions (no card) that phase 20
+    holds its runs to: {(2, 2) and ``POD_SHAPE``: ``count_collectives``
+    of a train step on that mesh, "serve": {dtype:
+    ``meta_serve_collectives``}}."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import (Mesh, TRAIN_RULES,
+                                                  sharding_ctx)
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import make_step_bundle
+    cfg = get_config("gemma3-1b")
+    out = {}
+    for shape in ((2, 2), POD_SHAPE):
+        desc = Mesh(("pod", "data", "model")[-len(shape):], shape)
+        with sharding_ctx(desc, TRAIN_RULES):
+            bundle = make_step_bundle(cfg, ShapeConfig("pod_train", 1024, 4,
+                                                       "train"),
+                                      microbatches=1, moments_dtype="int8")
+        out[shape] = dryrun.count_collectives(bundle, cfg, desc, TRAIN_RULES)
+    desc = Mesh(("pod", "data", "model"), POD_SHAPE)
+    out["serve"] = {dtype: meta_serve_collectives(
+        dataclasses.replace(cfg, dtype=dtype), desc, 4, 1016, 4096)
+        for dtype in ("float32", "bfloat16")}
+    return out
+
+
+def finish(proc, what, timeout=600):
+    """``proc``'s (stdout, stderr) once it ends; a non-zero exit fails."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}: "
+                             f"{err[-3000:]}")
+    return out, err
+
+
+def pod_train(torch, meta_counts):
+    """Phase 20 (a): gemma3-1b at full width and depth trains 3 steps of
+    S8's data (``SyntheticPacked`` seed 0, 4 x 1024 in one microbatch:
+    one row a (pod, data) position) with int8 moments on (2, 2, 2)
+    stacked on the card, against the same with no mesh and on (2, 2):
+    losses within ``MESH_TOL``, the state after 3 steps within
+    ``STATE_TOL`` a leaf (the drawn state, an unchanged one, must fail
+    it), the bytes a position holds equal to the dry-run's, and each
+    position's collective bytes in a step equal to the dry-run's count of
+    the same step over meta positions (exact; ``meta_counts``:
+    ``pod_meta_counts``). Prints each run's step walls, peak memory and
+    collective bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPacked
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import TRAIN_RULES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.optimizer.adamw import AdamWConfig
+    from repro_torch.training import step as steplib
+    cfg = get_config("gemma3-1b")
+    lm = LM(cfg)
+    B, S, steps = 4, 1024, 3
+    opt = AdamWConfig(moments_dtype="int8")
+    data = SyntheticPacked(cfg.vocab_size, S, B, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+               for _ in range(steps)]
+    structs = steplib.train_state_structs(lm, opt)
+    st_axes = steplib.train_state_logical_axes(lm, opt)
+    runs = {}
+    for shape in (None, (2, 2), POD_SHAPE):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = (make_mesh(shape, ("pod", "data", "model")[-len(shape):],
+                          POD_STACK[:int(np.prod(shape))]) if shape else None)
+        state = steplib.init_train_state(
+            lm, torch.Generator(device="cuda").manual_seed(0), opt, "cuda",
+            mesh=mesh)
+        name = "no mesh" if mesh is None else str(shape)
+        if shape == POD_SHAPE:
+            drawn = state_measures(torch, state)
+        if mesh is not None:
+            held = spmd.bytes_per_position(state)
+            want = dryrun.tree_bytes_per_device(structs, st_axes, mesh,
+                                                TRAIN_RULES)
+            if held != [want] * mesh.size:
+                raise AssertionError(f"pod (a) {name}: bytes a position "
+                                     f"{held} != the dry-run's {want}")
+        fn = steplib.make_train_step(lm, opt, mesh=mesh)
+        losses, walls = [], []
+        for b in batches:
+            spmd.reset_collective_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+        coll = ([spmd.collective_bytes(r) for r in range(mesh.size)]
+                if mesh is not None else None)
+        runs[shape] = dict(losses=losses, walls=walls, coll=coll,
+                           sums=state_measures(torch, state),
+                           peak=torch.cuda.max_memory_allocated(),
+                           held=held[0] if mesh is not None else None)
+        del state, fn
+    base = runs[None]
+    frozen = state_gap(drawn, base["sums"])
+    names = leaf_names(structs)
+    for shape in ((2, 2), POD_SHAPE):
+        run = runs[shape]
+        meta = meta_counts[shape]
+        gap = max(abs(a - b) for a, b in zip(run["losses"], base["losses"]))
+        sgap = state_gap(run["sums"], base["sums"])
+        log(f"pod (a) gemma3-1b on {shape} stacked ({len(run['coll'])} "
+            f"positions) "
+            f"against no mesh, {B} x {S} in one microbatch, int8 moments: "
+            f"losses {run['losses']} against {base['losses']}: max |gap| "
+            f"{gap:.3e} (tolerance {MESH_TOL}); state after {steps} steps: "
+            f"largest relative gap of a leaf's measure {sgap:.3e} "
+            f"(tolerance {STATE_TOL}; widest "
+            f"{widest_gaps(run['sums'], base['sums'], names)}); "
+            f"step walls {[round(w * 1e3, 1) for w in run['walls']]} ms "
+            f"(no mesh {[round(w * 1e3, 1) for w in base['walls']]} ms); "
+            f"peak memory {run['peak']} B (no mesh {base['peak']} B); bytes "
+            f"a position {run['held']} B (= dryrun.tree_bytes_per_device)")
+        log(f"pod (a) {shape}: collective bytes a position in the last "
+            f"step {run['coll'][0]}, the dry-run's meta count of the same "
+            f"step {meta['per_position'][0]} ({meta['count_s']:.2f} s on "
+            f"{len(run['coll'])} meta positions, before the runs)")
+        if not all(np.isfinite(run["losses"])) or gap > MESH_TOL:
+            raise AssertionError(f"pod (a) {shape}: losses {run['losses']} "
+                                 f"vs {base['losses']}")
+        if not sgap <= STATE_TOL:
+            raise AssertionError(f"pod (a) {shape}: state gap {sgap}")
+        if run["coll"] != meta["per_position"]:
+            raise AssertionError(f"pod (a) {shape}: collective bytes "
+                                 f"{run['coll']} differ from the meta count "
+                                 f"{meta['per_position']}")
+    log(f"pod (a) frozen-update control: the drawn state against no mesh's "
+        f"after {steps} steps: largest relative gap {frozen:.3e} (must "
+        f"exceed {STATE_TOL})")
+    if not frozen > STATE_TOL:
+        raise AssertionError("pod (a): an unchanged state reads within "
+                             f"{STATE_TOL} of the trained one")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pod_phase(torch):
+    """The multi-pod mesh (cell S15; budget 60 s), its eight positions
+    stacked on the card: first (c) ``examples/torch/serve_small_real.py``
+    as a user runs it, on the card in a process of its own: exit 0 and
+    "lossless ✓", while this process makes the dry-run's meta counts
+    (``pod_meta_counts``); then, with nothing beside them, (a) training
+    (``pod_train``) and (b) gemma3-1b at full width and depth prefills 4
+    x 1,016 tokens (numpy seed 13) at capacity 4,096 under
+    ``PREFILL_RULES`` (the batch over the pods and data rows), moves the
+    caches to ``DECODE_RULES`` (both pods hold the same four pieces of
+    1,024 slots) and decodes greedy steps across the piece boundary, 9
+    in fp32 (within ``SERVE_FP32_TOL``; the ninth writes the second
+    piece's first slot) and then 16 in bf16 (within ``CONTINUITY_TOL``,
+    near-tie flips reported), against no mesh
+    (``serve_mesh_full`` with ``mesh_shape``: bytes and collective bytes
+    exact; every position's logits equal bit for bit). Returns the
+    phase's kernel launches (the example's are its own process's)."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    root = Path(__file__).resolve().parent
+    example = subprocess.Popen(
+        [sys.executable, str(root / "examples" / "torch" /
+                             "serve_small_real.py")],
+        cwd=root, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        counts = pod_meta_counts()
+        log(f"pod: the dry-run's meta counts in "
+            f"{time.perf_counter() - t_phase:.2f} s, beside (c)")
+        t0 = time.perf_counter()
+        out, _ = finish(example, "pod (c) serve_small_real")
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.communicate()
+    lines = out.strip().splitlines()
+    log(f"pod (c) examples/torch/serve_small_real.py on the card: exit 0, "
+        f"waited for {time.perf_counter() - t0:.2f} s after the meta counts; "
+        + " | ".join(ln for ln in lines if ln.startswith(("[", "token"))))
+    if "lossless ✓" not in out:
+        raise AssertionError("pod (c): serve_small_real did not print "
+                             "lossless ✓")
+    log(f"phase 20 (c) wall: {time.perf_counter() - t_phase:.2f} s")
+    t0 = time.perf_counter()
+    pod_train(torch, counts)
+    log(f"phase 20 (a) wall: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for dtype, detail, steps, tol in (
+            ("float32", False, 9, SERVE_FP32_TOL),
+            ("bfloat16", True, 16, CONTINUITY_TOL)):
+        serve_mesh_full(torch, POD_STACK, "stacked", arch="gemma3-1b",
+                        tag=f"pod (b) {dtype}", dtype=dtype, detail=detail,
+                        steps=steps, tol=tol, mesh_shape=POD_SHAPE,
+                        meta=counts["serve"][dtype])
+    log(f"phase 20 (b) wall: {time.perf_counter() - t0:.2f} s")
+    launches = ops.launch_counts()
+    log(f"pod path kernel launches: {launches}")
+    if not launches["flash_attention"]:
+        raise AssertionError("phase 20: flash never launched")
+    log(f"phase 20 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 # the phases ``--phase N`` runs alone (after phases 1 and 2)
-ALONE = ("14", "16", "17", "18", "19")
+ALONE = ("14", "16", "17", "18", "19", "20")
 
 
 def run_alone(torch, phase):
@@ -3943,7 +4253,8 @@ def run_alone(torch, phase):
            "16": lambda: mesh_families_phase(torch),
            "17": lambda: serve_mesh_phase(torch),
            "18": lambda: serve_mesh_families_phase(torch),
-           "19": lambda: serve_mesh_encdec_phase(torch)}
+           "19": lambda: serve_mesh_encdec_phase(torch),
+           "20": lambda: pod_phase(torch)}
     return run[phase]()
 
 
@@ -4114,6 +4425,9 @@ def main(argv) -> int:
     # on a mesh
     launches["mesh_serve_encdec"] = serve_mesh_encdec_phase(torch)
 
+    # 20. training, prefill and decode on the multi-pod mesh
+    launches["mesh_pod"] = pod_phase(torch)
+
     sources = {"kv_copy": ("kv_copy.cu", "src/repro/kernels/kv_copy.py:29"),
                "paged_attention": ("paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:84"),
@@ -4144,7 +4458,8 @@ def main(argv) -> int:
                                 ("18_mesh_serve_families",
                                  launches["mesh_serve_families"]),
                                 ("19_mesh_serve_encdec",
-                                 launches["mesh_serve_encdec"]))})
+                                 launches["mesh_serve_encdec"]),
+                                ("20_mesh_pod", launches["mesh_pod"]))})
         for tag, key in (("@B=8", "at_decode_batch_8"),
                          ("@D=256", "at_head_dim_256"),
                          ("@D=256,paligemma", "at_head_dim_256_paligemma"),

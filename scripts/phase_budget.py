@@ -29,8 +29,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 # (phase, chip_smoke's depth constant, its value before the cut)
-CUTS = (("14", "TP_DEPTH", 8), ("16", "MESH_FAMILY_DEPTH", 32))
-ADDED = "19"
+CUTS = (("16", "MESH_FAMILY_DEPTH", 16), ("17", "SERVE_MESH_DEPTH", 32),
+        ("18", "SERVE_SSM_DEPTH", 64))
+ADDED = "20"
 
 
 def main() -> int:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -59,16 +60,22 @@ class Mesh:
         return math.prod(self.axis_sizes)
 
     def coords(self, r: int) -> Dict[str, int]:
-        """Position ``r``'s index along each axis (row-major)."""
-        out = {}
-        for name, n in zip(reversed(self.axis_names),
-                           reversed(self.axis_sizes)):
-            r, out[name] = divmod(r, n)
-        return out
+        """Position ``r``'s index along each axis (row-major; shared: not
+        to be changed)."""
+        return _coords(self.axis_names, self.axis_sizes, r)
 
     def axis_index(self, r: int, axis: str) -> int:
         """Position ``r``'s index along ``axis`` (0 if not an axis)."""
         return self.coords(r).get(axis, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _coords(names: Tuple[str, ...], sizes: Tuple[int, ...], r: int
+            ) -> Dict[str, int]:
+    out = {}
+    for name, n in zip(reversed(names), reversed(sizes)):
+        r, out[name] = divmod(r, n)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

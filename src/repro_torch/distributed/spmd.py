@@ -30,6 +30,7 @@ what it lacks from a holder; :func:`moved_bytes` counts what it copied.
 from __future__ import annotations
 
 import collections
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -150,12 +151,9 @@ class Placed:
 
     def holders(self) -> List[List[int]]:
         """The positions holding each distinct piece, in order of their
-        first position; each list in position order."""
-        seen: Dict[Tuple[int, ...], List[int]] = {}
-        for r in range(self.mesh.size):
-            seen.setdefault(piece_index(self.spec, self.mesh, r),
-                            []).append(r)
-        return list(seen.values())
+        first position; each list in position order (shared: not to be
+        changed)."""
+        return _holders(self.spec, self.mesh)
 
     def nbytes(self, r: int) -> int:
         p = self.pieces[r]
@@ -165,13 +163,41 @@ class Placed:
         """(first index, size) of position ``r``'s piece along each dim."""
         return piece_ranges(self.spec, self.shape, self.mesh, r)
 
-    def first_holder(self, r: int) -> bool:
-        """Whether ``r`` is the first position holding its piece."""
-        return next(m for m in self.holders() if r in m)[0] == r
+    def first_holder(self, r: int, within: Sequence[str] = ()) -> bool:
+        """Whether ``r`` is the first position holding its piece; with
+        ``within``, the first of those in its group along those axes
+        (``groups``: a pod's positions over ("data", "model"))."""
+        return r in _first_holders(self.spec, self.mesh, tuple(within))
 
     def __repr__(self):
         return (f"Placed(shape={self.shape}, spec={self.spec}, "
                 f"dtype={self.dtype}, mesh={self.mesh.axis_sizes})")
+
+
+@functools.lru_cache(maxsize=None)
+def _holders(spec: PSpec, mesh: Mesh) -> List[List[int]]:
+    seen: Dict[Tuple[int, ...], List[int]] = {}
+    for r in range(mesh.size):
+        seen.setdefault(piece_index(spec, mesh, r), []).append(r)
+    return list(seen.values())
+
+
+@functools.lru_cache(maxsize=None)
+def _first_holders(spec: PSpec, mesh: Mesh, within: Tuple[str, ...]
+                   ) -> frozenset:
+    """The positions first among the holders of their piece, within their
+    group along ``within`` (all positions: one group)."""
+    group_of = {r: i for i, g in enumerate(groups(mesh, *within))
+                for r in g} if within else {}
+    out = set()
+    for members in _holders(spec, mesh):
+        seen = set()
+        for r in members:
+            g = group_of.get(r, 0)
+            if g not in seen:
+                seen.add(g)
+                out.add(r)
+    return frozenset(out)
 
 
 def is_placed(x) -> bool:
@@ -324,8 +350,13 @@ def groups(mesh: Mesh, *axes: str) -> List[List[int]]:
     composed major to minor as listed (``piece_index``'s order for a dim
     split over them); ``groups(mesh, "data", "model")`` is the whole grid
     of a (data, model) mesh. An axis the mesh lacks counts one position
-    (none at all: one position a group)."""
-    axes = tuple(a for a in axes if a in mesh.shape)
+    (none at all: one position a group). The lists are shared: not to be
+    changed."""
+    return _groups(mesh, tuple(a for a in axes if a in mesh.shape))
+
+
+@functools.lru_cache(maxsize=None)
+def _groups(mesh: Mesh, axes: Tuple[str, ...]) -> List[List[int]]:
     if not axes:
         return [[r] for r in range(mesh.size)]
     shape = mesh.shape

@@ -17,15 +17,30 @@ rules and reports, without allocating anything or touching a device:
   flash's backward as the plain PyTorch it is; ``model_flops`` counts a
   3x forward. Both are recorded, and their ratio is ``useful_flops_ratio``.
   FLOPs per device are the step's over the device count (an even split);
+- on both meshes, the collective bytes one position receives in the
+  step (``collective_detail_full_compile``, the reference's key): the
+  step runs on the mesh itself, every one of its 256 or 512 positions a
+  ``torch.device("meta")`` (``launch.mesh.make_mesh``), its inputs laid
+  out under the cell's rules, and ``distributed/spmd.py`` counts what
+  each collective delivers (``count_collectives``). The busiest
+  position's count is recorded, by kind;
 - the roofline of those terms on an H100 (``launch/roofline.py``), with
-  the memory term from ``analytic_memory_bytes``.
+  the memory term from ``analytic_memory_bytes`` and the collective term
+  from the single-pod mesh's count.
 
 The reference compiles each cell for 512 forced host devices and reads
 XLA's cost analysis, which counts a ``lax.scan`` body once, so it
-extrapolates from shallow unrolled compiles (``extrapolate_costs``). Here
-the layers are a Python loop that the counter sees whole, so that has no
-counterpart; and a meta cell needs no process of its own, so ``--all``
-runs the cells in this process.
+extrapolates from shallow unrolled compiles (``extrapolate_costs``). The
+FLOP counter sees every layer of the port's Python loop, so the FLOPs
+need no extrapolation. The collectives do, for time: one meta step over
+512 positions runs every position's operations from one host thread
+(each position after the first takes its results' shapes from
+``_MetaMemo``), so ``collective_costs`` counts at one and at two periods
+of the layer pattern and extrapolates linearly, ``c1 + (periods - 1)
+(c2 - c1)``, the reference's two-point rule; a train step counts one
+microbatch and multiplies by their number (every collective of the step
+lies in a microbatch's forward and backward). A meta cell needs no
+process of its own, so ``--all`` runs the cells in this process.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
@@ -37,7 +52,9 @@ Each cell writes results/dryrun_torch/<arch>__<shape>__<mesh>.json (cached;
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -45,6 +62,7 @@ import traceback
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import SHAPES, get_config, shape_applicable
@@ -52,12 +70,15 @@ from repro_torch.configs.base import ARCH_IDS
 from repro_torch.distributed.sharding import (is_axes_leaf, mesh_axis_size,
                                               pspec_for, rules_for_shape,
                                               sharding_ctx, shards_of)
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.launch import roofline
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.models import attention
 from repro_torch.models.api import make_step_bundle
-from repro_torch.models.lm import build_program
-from repro_torch.optimizer.adamw import TensorSpec
+from repro_torch.models.lm import LM, build_program, check_mesh_support
+from repro_torch.optimizer.adamw import AdamWConfig, TensorSpec
+from repro_torch.training.step import make_train_step
 from repro_torch.tree import tree_leaves, tree_map
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
@@ -157,12 +178,188 @@ def count_step_flops(cfg, shape, bundle, opts) -> dict:
     return out
 
 
+def mesh_step(bundle, cfg, mesh):
+    """The cell's step over ``mesh`` (a mesh of devices): the train step
+    with the bundle's microbatches, moments and accumulation, or
+    ``LM.prefill`` / ``LM.decode_step`` with ``mesh=``."""
+    meta = bundle.static_meta
+    lm = LM(cfg, remat_group=meta.get("remat_group", 1))
+    check_mesh_support(mesh, bundle.kind)
+    if bundle.kind == "train":
+        return make_train_step(
+            lm, AdamWConfig(moments_dtype=meta["moments_dtype"]),
+            microbatches=meta["microbatches"],
+            accum_dtype=meta["accum_dtype"], mesh=mesh)
+    if bundle.kind == "prefill":
+        return lambda params, batch: lm.prefill(params, batch,
+                                                meta["capacity"], mesh=mesh)
+    return lambda params, caches, batch: lm.decode_step(params, caches,
+                                                        batch, mesh=mesh)
+
+
+def placed_args(bundle, mesh, rules, device):
+    """The step's arguments over ``mesh``: zeros on ``device`` (``meta``:
+    nothing allocated) for every ``TensorSpec``, the weights, the train
+    state and a decode's caches laid out by their logical axes under
+    ``rules``, the batch whole; a decode's ``cache_len`` the last slot of
+    its cache."""
+    def zeros(s):
+        if torch.device(device).type == "meta":     # no values to fill
+            return torch.empty(s.shape, dtype=s.dtype, device=device)
+        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+    args = [tree_map(zeros, a, is_leaf=lambda x: isinstance(x, TensorSpec))
+            for a in bundle.args_structs]
+    for i in range(len(args) - 1):
+        args[i] = spmd.place_tree(args[i], bundle.args_axes[i], mesh, rules)
+    if bundle.kind == "decode":
+        args[-1]["cache_len"] = bundle.static_meta["capacity"] - 1
+    return args
+
+
+def _memo_key(args):
+    """A key of an operation's arguments: a meta tensor by its shape,
+    strides and dtype, a list by its items, anything else by its type and
+    value; ``None`` where a tensor is not on meta."""
+    keys = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if not a.is_meta:
+                return None
+            keys.append((a.shape, a.stride(), a.dtype))
+        elif isinstance(a, (list, tuple)):
+            k = _memo_key(a)
+            if k is None:
+                return None
+            keys.append(k)
+        else:
+            keys.append((type(a), a))
+    return tuple(keys)
+
+
+@functools.lru_cache(maxsize=None)
+def _fresh(func) -> bool:
+    """Whether ``func`` writes into no input and returns no view."""
+    schema = func._schema
+    return not schema.is_mutable and all(r.alias_info is None
+                                         for r in schema.returns)
+
+
+class _MetaMemo(TorchDispatchMode):
+    """On meta tensors, an operation that returns fresh tensors gives
+    empty ones of the shapes, strides and dtypes it gave the last time it
+    met the same arguments (``_memo_key``). Every position of a meta mesh
+    runs the same operations on pieces of the same shapes, and meta runs
+    many of them as Python references (hundreds of microseconds each), so
+    all but the first position's skip them. ``count_collectives`` runs a
+    step over hundreds of meta positions under it; a test holds its
+    counts equal to the same step's on real tensors."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        key = hit = None
+        if _fresh(func):
+            key = (func, _memo_key(args), _memo_key(kwargs.values()),
+                   tuple(kwargs))
+            if None in key[1:3]:        # a tensor not on meta
+                key = None
+            else:
+                try:
+                    hit = self.made.get(key)
+                except TypeError:       # an argument without a value key
+                    key = None
+        if hit is not None:
+            many, outs = hit
+            made = [torch.empty_strided(size, stride, dtype=dtype,
+                                        device="meta")
+                    for size, stride, dtype in outs]
+            return tuple(made) if many else made[0]
+        out = func(*args, **kwargs)
+        many = isinstance(out, tuple)
+        ts = out if many else (out,)
+        if key is not None and all(isinstance(t, torch.Tensor)
+                                   and t.device.type == "meta" for t in ts):
+            self.made[key] = many, [(tuple(t.shape), t.stride(), t.dtype)
+                                    for t in ts]
+        return out
+
+
+@contextlib.contextmanager
+def _one_backward_chunk():
+    """The plain flash backward over all its query rows at once: it
+    chunks them to bound the scores it holds, which meta does not hold,
+    and the gradients' shapes (all that a collective sees) are the
+    same."""
+    keep = attention.BWD_CHUNK_Q
+    attention.BWD_CHUNK_Q = sys.maxsize
+    try:
+        yield
+    finally:
+        attention.BWD_CHUNK_Q = keep
+
+
+def count_collectives(bundle, cfg, mesh_desc, rules, device="meta") -> dict:
+    """Run the cell's step once over ``mesh_desc``'s axes with every
+    position on ``device`` (on meta, under ``_MetaMemo`` and
+    ``_one_backward_chunk``): the busiest position's collective bytes by
+    kind (the most in all), every position's (``per_position``),
+    ``positions`` and the seconds it took (``count_s``)."""
+    mesh = make_mesh(mesh_desc.axis_sizes, mesh_desc.axis_names,
+                     [device] * mesh_desc.size)
+    ops.reset_meta_costs()
+    t0 = time.time()
+    spmd.reset_collective_bytes()
+    with contextlib.ExitStack() as stack:
+        if torch.device(device).type == "meta":
+            stack.enter_context(_MetaMemo())
+            stack.enter_context(_one_backward_chunk())
+        mesh_step(bundle, cfg, mesh)(*placed_args(bundle, mesh, rules,
+                                                  device))
+    per = [spmd.collective_bytes(r) for r in range(mesh.size)]
+    spmd.reset_collective_bytes()
+    ops.reset_meta_costs()
+    out = dict(max(per, key=lambda c: sum(c.values())))
+    return {"bytes": out, "per_position": per, "positions": len(per),
+            "count_s": round(time.time() - t0, 2)}
+
+
+def collective_costs(cfg, shape, mesh_desc, rules, mb: int, opts,
+                     device="meta") -> dict:
+    """The step's collective bytes a position at full depth, from
+    ``count_collectives`` at one and at two periods of the layer pattern
+    (``depth_variant``) extrapolated linearly to ``num_layers / period``
+    periods; a train step at one microbatch's batch, times ``mb``."""
+    p = period_len(cfg)
+    X = cfg.num_layers / p
+    if shape.kind == "train":
+        one_shape = dataclasses.replace(
+            shape, global_batch=shape.global_batch // mb)
+        times = mb
+    else:
+        one_shape, times = shape, 1
+    counts = []
+    for periods in (1, 2):
+        var = depth_variant(cfg, periods, p)
+        with sharding_ctx(mesh_desc, rules):
+            b = make_step_bundle(var, one_shape, microbatches=1, **opts)
+        counts.append(count_collectives(b, var, mesh_desc, rules, device))
+    c1, c2 = (c["bytes"] for c in counts)
+    full = {k: times * (c1[k] + (X - 1) * (c2[k] - c1[k])) for k in c1}
+    return {"bytes": full, "period_len": p, "periods_full": X,
+            "counted_microbatches": 1, "microbatches": times,
+            "positions": counts[0]["positions"],
+            "count_s": round(sum(c["count_s"] for c in counts), 2)}
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              microbatches=None, opt_flags=None, count: bool = True) -> dict:
-    """One cell's record. ``count=False`` skips the FLOP count and the
-    roofline (bytes only). FLOPs and the roofline are for the single-pod
-    mesh; the multi-pod cell proves the layout (bytes), as in the
-    reference."""
+    """One cell's record. ``count=False`` skips the FLOP and collective
+    counts and the roofline (bytes only). The collective bytes are
+    counted on both meshes; FLOPs and the roofline are for the single-pod
+    mesh, as in the reference."""
     opts = dict(opt_flags or {})
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -186,6 +383,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     rec["local_bytes"] = {name: group_bytes_per_device(grp, mesh, rules)
                           for name, grp in bundle.byte_groups.items()}
     rec["build_s"] = round(time.time() - t0, 2)
+    if count:
+        cc = collective_costs(cfg, shape, mesh, rules,
+                              rec.get("microbatches", 1), opts)
+        rec["collective_detail_full_compile"] = cc.pop("bytes")
+        rec["collective_count"] = cc
     if count and mesh_kind == "single":
         fc = count_step_flops(cfg, shape, bundle, opts)
         rec["flop_count"] = fc
@@ -199,7 +401,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             microbatches=rec.get("microbatches", 1))
         rec["roofline"] = roofline.summarize(
             cfg, shape, mesh.size, {"flops": fc["flops"] / mesh.size},
-            None if mesh.size > 1 else {}, mem_model)
+            rec["collective_detail_full_compile"], mem_model)
     rec["status"] = "ok"
     return rec
 
@@ -278,13 +480,16 @@ def main(argv=None) -> int:
         failed += rec["status"] == "error"
         short = {k: rec.get(k) for k in ("status", "microbatches", "reason",
                                          "arg_bytes_per_device",
-                                         "local_bytes")}
+                                         "local_bytes",
+                                         "collective_detail_full_compile")}
+        if "collective_count" in rec:
+            short["collective_count_s"] = rec["collective_count"]["count_s"]
         rl = rec.get("roofline", {})
         if rl:
             short.update({k: rl[k] for k in (
                 "bottleneck", "roofline_fraction", "roofline_fraction_hw",
                 "flops_per_device", "model_flops_global",
-                "useful_flops_ratio")})
+                "useful_flops_ratio", "collective_s")})
             short["count_s"] = rec["flop_count"]["count_s"]
         print(f"{args.arch} {args.shape} {m}: {json.dumps(short)}",
               flush=True)

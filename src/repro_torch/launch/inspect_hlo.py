@@ -19,11 +19,15 @@ step on a ``(data, model)`` mesh (``launch.mesh.make_mesh``: CUDA needs
 ``cuda:0,cuda:0,cuda:0,cuda:0``; ``--device cpu`` puts every shard on
 the CPU): a train cell, a prefill cell under ``PREFILL_RULES`` or a
 decode cell under ``DECODE_RULES``, of any family (an encoder-decoder's
-decode reads cross caches over its source frames). It prints the top
-operations of each device, then the bytes each position's collectives
-counted and the roofline's collective term they give. ``--mesh P,D,M``
-puts a "pod" axis first, which the mesh path refuses, naming ROADMAP.md
-§1 item 3.
+decode reads cross caches over its source frames). ``--mesh P,D,M``
+puts a "pod" axis first: the multi-pod mesh, its batch over the pods and
+data rows together. It prints the top operations of each device, then
+the bytes each position's collectives counted and the roofline's
+collective term they give.
+
+    PYTHONPATH=src python -m repro_torch.launch.inspect_hlo --arch gemma3-1b \
+        --shape train_4k --periods 1 --mesh 2,2,2 \
+        --device cuda:0,cuda:0,cuda:0,cuda:0,cuda:0,cuda:0,cuda:0,cuda:0
 """
 from __future__ import annotations
 
@@ -107,7 +111,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="none",
                     help="'none' (one device) or 'D,M': the cell on a "
-                         "(data, model) mesh ('P,D,M': with a pod axis)")
+                         "(data, model) mesh ('P,D,M': the multi-pod "
+                         "(pod, data, model) mesh)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--periods", type=int, default=1)
     ap.add_argument("--top", type=int, default=20)
@@ -121,7 +126,8 @@ def main(argv=None) -> int:
         try:
             mesh_shape = tuple(int(x) for x in args.mesh.split(","))
         except ValueError:
-            ap.error(f"--mesh takes 'none' or 'D,M', got {args.mesh!r}")
+            ap.error(f"--mesh takes 'none', 'D,M' or 'P,D,M', got "
+                     f"{args.mesh!r}")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -129,12 +135,9 @@ def main(argv=None) -> int:
     from repro_torch.device import resolve_device
     from repro_torch.distributed import spmd
     from repro_torch.launch import roofline
-    from repro_torch.launch.dryrun import depth_variant, period_len
+    from repro_torch.launch.dryrun import depth_variant, mesh_step, period_len
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import make_step_bundle
-    from repro_torch.models.lm import LM, check_mesh_support
-    from repro_torch.optimizer.adamw import AdamWConfig
-    from repro_torch.training.step import make_train_step
 
     opts = {}
     for kv in args.opt:
@@ -153,20 +156,7 @@ def main(argv=None) -> int:
                 else ("data", "model")[:len(mesh_shape)])
         mesh = make_mesh(mesh_shape, axes, dev)
         device = mesh.devices[0]
-        meta = bundle.static_meta
-        lm = LM(var, remat_group=meta.get("remat_group", 1))
-        check_mesh_support(mesh, bundle.kind)
-        if bundle.kind == "train":
-            fn = make_train_step(
-                lm, AdamWConfig(moments_dtype=meta["moments_dtype"]),
-                microbatches=meta["microbatches"],
-                accum_dtype=meta["accum_dtype"], mesh=mesh)
-        elif bundle.kind == "prefill":
-            def fn(params, batch):
-                return lm.prefill(params, batch, meta["capacity"], mesh=mesh)
-        else:
-            def fn(params, caches, batch):
-                return lm.decode_step(params, caches, batch, mesh=mesh)
+        fn = mesh_step(bundle, var, mesh)
     else:
         device = resolve_device(args.device)
     step_args = concrete_args(bundle, var, shape, device, mesh=mesh)

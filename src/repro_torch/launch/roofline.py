@@ -16,9 +16,9 @@ kernels' own formulas (``kernels/*.py::flops_and_bytes``). Its collective
 bytes are what a run's collectives counted (``distributed/spmd.py``:
 ``collective_bytes``, per position, the reference's result-shape
 convention), over ``Peaks.link_bw``: 0 on one device, counted on a mesh
-that ran (``inspect_hlo --mesh``, ``chip_smoke.py`` phase 15), and unknown
-(None, with the reason ``NO_COLLECTIVES``) on the dry-run's production
-meshes, where nothing runs.
+that ran (``inspect_hlo --mesh``, ``chip_smoke.py`` phase 15), and on the
+dry-run's production meshes counted by running the step over meta
+positions (``launch/dryrun.py::collective_costs``).
 """
 from __future__ import annotations
 
@@ -35,12 +35,6 @@ HBM_BYTES_S = 3.35e12             # HBM3, bytes/s
 # reference's result-shape convention), so it divides by one direction's
 # rate, NVLINK_BYTES_S / 2 = 450 GB/s.
 NVLINK_BYTES_S = 900e9
-
-NO_COLLECTIVES = ("collective bytes are counted by running the mesh "
-                  "(distributed/spmd.py); the dry-run runs nothing on its "
-                  "256- and 512-device meshes, whose collective term waits "
-                  "for ROADMAP.md §1 item 3")
-
 
 @dataclasses.dataclass(frozen=True)
 class Peaks:
@@ -182,8 +176,9 @@ def summarize(cfg: ModelConfig, shape: ShapeConfig, num_devices: int,
               hw: Peaks = H100_SXM) -> Dict:
     """The roofline record of one step. ``cost``: {"flops": per device}
     (and "bytes accessed" where measured); ``coll``: collective bytes per
-    device by kind (``spmd.collective_bytes()`` of a run), or None where
-    they are unknown (the dry-run's meshes: ``NO_COLLECTIVES``)."""
+    device by kind (``spmd.collective_bytes()`` of a run, or the
+    dry-run's count), or None where nothing counted them: the term is
+    then unknown and does not bind."""
     flops_dev = float(cost.get("flops", 0.0)) if cost else 0.0
     raw_bytes_dev = float(cost.get("bytes accessed", 0.0)) if cost else 0.0
     bytes_dev = (memory_model or {}).get("total", raw_bytes_dev)
@@ -215,6 +210,4 @@ def summarize(cfg: ModelConfig, shape: ShapeConfig, num_devices: int,
         "peaks": dataclasses.asdict(hw),
         **terms,
     }
-    if coll is None:
-        out["collective_note"] = NO_COLLECTIVES
     return out

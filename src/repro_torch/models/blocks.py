@@ -33,10 +33,15 @@ along d: its softmax merged over the caches' pieces across the grid (the
 cross caches read, never written), the SSM's caches stepped in place on
 their pieces, the experts' router and products summed over "data" and
 their combine over "model". ``_ffn_shards`` is the FFN of every mode.
+On a multi-pod mesh ("pod" ahead of "data" and "model") the batch splits
+over the pods and data rows together where they divide it; the weights
+are whole across pods, and every sum and merge of the decode stays
+inside a pod, each pod computing the same step.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -494,12 +499,13 @@ def _ssm_shards(cfg: ModelConfig, mesh, ws: list, xs: list,
 
 def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
                        ws: list, xs: list, positions: list,
-                       memory: Optional[list] = None) -> list:
+                       memory: Optional[list] = None,
+                       moe_axes: Tuple[str, ...] = ()) -> list:
     """One layer of any kind over the mesh: ``ws`` from ``shard_weights``,
     ``xs[r]`` position r's copy of its data shard's residual stream (b, S,
     d), ``positions[r]`` (b, S), ``memory[r]`` its copy of the encoder's
-    memory for a cross-attention layer. Returns the new residual
-    streams."""
+    memory for a cross-attention layer; ``moe_axes`` as ``_ffn_shards``.
+    Returns the new residual streams."""
     if spec.mixer == "attn":
         window = 0 if spec.is_global else cfg.attn.sliding_window
         outs = [_attn_seq(cfg, spec, w, x, pos, window)[0]
@@ -518,11 +524,26 @@ def apply_layer_shards(cfg: ModelConfig, spec: LayerSpec, mesh,
         if ws[0]["cwo"].shape[0] != cfg.num_heads:
             outs = spmd.all_reduce(outs, mesh, "model")
         xs = [x + o for x, o in zip(xs, outs)]
-    return _ffn_shards(cfg, spec, mesh, ws, xs)
+    return _ffn_shards(cfg, spec, mesh, ws, xs, moe_axes=moe_axes)
+
+
+def _moe_rows(hs: list, ps: list, mcfg, mesh, axes: Tuple[str, ...]
+              ) -> list:
+    """``moe_shard`` where the streams ``hs`` are whole in batch on every
+    position but the experts split the rows over ``axes``
+    (``moe.moe_batch_axes``): each position routes its piece's rows, and
+    the outputs are gathered over ``axes`` again."""
+    if not axes:
+        return moe_shard(hs, ps, mcfg, mesh)
+    n = hs[0].shape[0] // math.prod(mesh.shape[a] for a in axes)
+    hs = [h.narrow(0, spmd.piece_index((axes,), mesh, r)[0] * n, n)
+          for r, h in enumerate(hs)]
+    return spmd.all_gather(moe_shard(hs, ps, mcfg, mesh), mesh, axes, dim=0)
 
 
 def _ffn_shards(cfg: ModelConfig, spec: LayerSpec, mesh, ws: list,
-                xs: list, decode: bool = False) -> list:
+                xs: list, decode: bool = False,
+                moe_axes: Tuple[str, ...] = ()) -> list:
     """The FFN residual over the mesh, in every mode: each position's
     ``d_ff`` columns or experts, the partials all-reduced over "model".
     Training and the prefill (``ws`` from ``shard_weights``, ``xs[r]``
@@ -531,13 +552,17 @@ def _ffn_shards(cfg: ModelConfig, spec: LayerSpec, mesh, ws: list,
     pieces, ``xs[r]`` its (B, d / D) piece, split over "data" along d)
     is weight-stationary: ``w_gate``/``w_up`` (and the router) partial
     sums over "data", ``w_down`` each position's d piece
-    (``moe_decode_shards`` for the experts)."""
+    (``moe_decode_shards`` for the experts). ``moe_axes``: where the
+    streams are whole in batch but the reference's ``shard_map`` splits
+    the rows (a batch that the pods and data rows together do not divide
+    and the data rows do), the axes the experts split them over."""
     if spec.ffn == "none":
         return xs
     if not decode:
         hs = [rms_norm(x, w["ln2"], cfg.rms_eps) for w, x in zip(ws, xs)]
         if spec.ffn == "moe":
-            fs = moe_shard(hs, [w["moe"] for w in ws], cfg.moe, mesh)
+            fs = _moe_rows(hs, [w["moe"] for w in ws], cfg.moe, mesh,
+                           moe_axes)
         else:
             fs = [swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
                   for w, h in zip(ws, hs)]
@@ -635,14 +660,15 @@ def _attn_shards_cached(cfg: ModelConfig, mesh, ws: list, pre: str, run
 def apply_layer_shards_prefill(cfg: ModelConfig, spec: LayerSpec, mesh,
                                ws: list, xs: list, positions: list,
                                cache_specs: Dict[str, ArraySpec], rules,
-                               memory: Optional[list] = None
+                               memory: Optional[list] = None,
+                               moe_axes: Tuple[str, ...] = ()
                                ) -> Tuple[list, Dict[str, spmd.Placed]]:
     """A prefill's decoder layer over the mesh (an attention or SSM mixer,
     a cross-attention over ``memory[r]``, position r's copy of the
     encoder's memory, a dense, MoE or no FFN): ``apply_layer_shards`` that
     also returns the layer's cache as ``spmd.Placed`` leaves, laid out by
     ``cache_specs`` (``layer_cache_specs``) under ``rules``
-    (``PREFILL_RULES``: the batch over "data"; ``kv_seq``, the SSM
+    (``PREFILL_RULES``: the batch over "pod" and "data"; ``kv_seq``, the SSM
     channels and heads over "model"). Self- and cross-attention run flash
     on each position's q heads and cache the k/v of every kv head it holds
     (``ws`` from ``shard_weights(..., pick_kv=False)``; the cross caches
@@ -675,7 +701,7 @@ def apply_layer_shards_prefill(cfg: ModelConfig, spec: LayerSpec, mesh,
                                           False)
                       for name, t in (("ck", ks), ("cv", vs))})
         xs = [x + o for x, o in zip(xs, outs)]
-    return _ffn_shards(cfg, spec, mesh, ws, xs), cache
+    return _ffn_shards(cfg, spec, mesh, ws, xs, moe_axes=moe_axes), cache
 
 
 def norm_pieces(cfg: ModelConfig, mesh, xs: list, scales: list) -> list:
@@ -716,11 +742,11 @@ def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list,
     (without, the cache is read only: the cross caches); each attends its
     piece with the q heads (``qs[r]``, all of them) that read its kv heads
     (``decode_attention_partial`` at the piece's offset); the pieces merge
-    over the whole grid (``combine_decode_attention``). Where the piece is
-    not the whole batch and every kv head, or another position holds it
-    first, its statistics stand in a whole-size tensor at their place, or
-    not at all (every piece counted once). Returns (B, Hq, D) a
-    position."""
+    over the whole grid of a pod (``combine_decode_attention``). Where the
+    piece is not the whole batch and every kv head, or another position of
+    the pod holds it first, its statistics stand in a whole-size tensor at
+    their place, or not at all (every piece counted once a pod). Returns
+    (B, Hq, D) a position."""
     B, _, Hkv, D = kc.shape
     G = cfg.num_heads // Hkv
 
@@ -730,6 +756,9 @@ def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list,
                 torch.zeros((B, Hkv, G, 1), **f32),
                 torch.zeros((B, Hkv, G, D), **f32))
 
+    # each pod holds and merges its own copy (DECODE_RULES keep the batch
+    # and the caches whole across pods)
+    grid = tuple(a for a in mesh.axis_names if a != "pod")
     parts = []
     for r in range(mesh.size):
         (b0, nb), (s0, ns), (h0, nh), _ = kc.ranges(r)
@@ -738,7 +767,7 @@ def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list,
         if s0 <= slot < s0 + ns:
             kp[:, slot - s0] = ks[r][b0:b0 + nb, h0:h0 + nh].to(kp.dtype)
             vp[:, slot - s0] = vs[r][b0:b0 + nb, h0:h0 + nh].to(vp.dtype)
-        if not kc.first_holder(r):
+        if not kc.first_holder(r, grid):
             parts.append(no_slot(kp.device))
             continue
         q = qs[r][b0:b0 + nb, h0 * G:(h0 + nh) * G]
@@ -749,7 +778,7 @@ def _decode_attn_pieces(cfg: ModelConfig, mesh, qs: list,
                 whole[b0:b0 + nb, h0:h0 + nh] = piece
             part = full
         parts.append(part)
-    outs = attn_lib.combine_decode_attention(parts, mesh, mesh.axis_names)
+    outs = attn_lib.combine_decode_attention(parts, mesh, grid)
     return [o.reshape(B, cfg.num_heads, D).to(q.dtype)
             for o, q in zip(outs, qs)]
 

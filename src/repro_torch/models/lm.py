@@ -37,7 +37,10 @@ keys and values become the cross caches), the decode under
 "data" along d and whole in batch, the caches' sequence over the whole
 grid, the softmax merged across it; the cross caches read, never
 written); ``caches_for_decode`` moves a prefill's caches to the decode
-layout between the two.
+layout between the two. On the multi-pod mesh ("pod" ahead of "data"
+and "model") a "data row" is a (pod, data) pair: the batch splits over
+both together where they divide it (``batch_split``), the weights are
+whole across pods, and each pod runs the same decode.
 ``param_structs``, ``param_axes``
 and ``cache_specs`` describe the weights and caches, with their logical
 axes, without allocating them (the dry-run's input). The reference's
@@ -57,10 +60,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import (DECODE_RULES, PREFILL_RULES,
-                                              pspec_for)
+                                              TRAIN_RULES, pspec_for)
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LayerSpec, make_layer_spec
 from repro_torch.models.common import ArraySpec, dtype_of, rms_norm
+from repro_torch.models.moe import moe_batch_axes
 from repro_torch.models.params import param_axes, param_specs
 from repro_torch.tree import flatten
 
@@ -269,7 +273,8 @@ class LM:
 
     # -- on a mesh --------------------------------------------------------
 
-    def _remat_shards(self, layers, xs, positions, mesh, memory=None):
+    def _remat_shards(self, layers, xs, positions, mesh, memory=None,
+                      moe_axes=()):
         """``_run_shards`` over one remat group through ``_Remat``: the
         group's streams, the encoder's memory and the weight pieces are
         its inputs."""
@@ -283,16 +288,18 @@ class LM:
                 out.append(x.like(rest[i:i + len(x.pieces)]))
                 i += len(x.pieces)
             return self._run_shards(list(zip(specs, rebuild(out))), xs,
-                                    positions, mesh, rest[:len(mem)] or None)
+                                    positions, mesh, rest[:len(mem)] or None,
+                                    moe_axes)
 
         pieces = [p for x in leaves for p in x.pieces]
         return list(_Remat.apply(run, len(xs), *xs, *mem, *pieces))
 
-    def _run_shards(self, layers, xs, positions, mesh, memory=None):
+    def _run_shards(self, layers, xs, positions, mesh, memory=None,
+                    moe_axes=()):
         for spec, p in layers:
             ws = blocks.shard_weights(self.cfg, p, mesh)
             xs = blocks.apply_layer_shards(self.cfg, spec, mesh, ws, xs,
-                                           positions, memory)
+                                           positions, memory, moe_axes)
             del ws
         return xs
 
@@ -314,8 +321,12 @@ class LM:
 
     def _train_loss_mesh(self, params, batch, remat, mesh) -> torch.Tensor:
         """``train_loss`` over ``mesh``: the global masked mean, the sum of
-        every data shard's masked NLL over the whole batch's mask count.
-        An encoder's memory comes first (``_encode_shards``). The
+        every batch piece's masked NLL over the whole batch's mask count.
+        The batch splits over "pod" and "data" as ``TRAIN_RULES`` lay it
+        (``batch_split``; whole on every position where they do not
+        divide it, each piece then counted once, and the experts split
+        the rows as ``moe.moe_batch_axes`` says). An encoder's memory
+        comes first (``_encode_shards``). The
         embedding is a masked lookup in each model shard's vocabulary
         rows, all-reduced, with a frontend's projected embeddings ahead
         of it; the loss takes the logsumexp and the gold logit across the
@@ -323,16 +334,14 @@ class LM:
         region."""
         cfg = self.cfg
         check_mesh_support(mesh)
-        D = mesh.shape.get("data", 1)
         B, S = batch["tokens"].shape
-        if B % D:
-            raise ValueError(f"batch {B} does not split over the mesh's "
-                             f"{D} data shards")
-        b, V = B // D, cfg.vocab_size
+        axes = batch_split(mesh, TRAIN_RULES, B)
+        moe_axes = () if axes else moe_batch_axes(mesh, B)
+        b, V = B // _positions(mesh, axes), cfg.vocab_size
         devs = mesh.devices
 
         def rows(k, r):
-            return _data_rows(batch[k], mesh, r, b)
+            return _data_rows(batch[k], mesh, r, b, axes)
 
         def vocab_cols(r, n):
             """(first vocabulary row of position r's shard, its rows)."""
@@ -357,9 +366,11 @@ class LM:
         g = self.remat_group if remat else len(layers)
         for i in range(0, len(layers), g):
             group = layers[i:i + g]
-            xs = (self._remat_shards(group, xs, positions, mesh, memory)
+            xs = (self._remat_shards(group, xs, positions, mesh, memory,
+                                     moe_axes)
                   if remat else
-                  self._run_shards(group, xs, positions, mesh, memory))
+                  self._run_shards(group, xs, positions, mesh, memory,
+                                   moe_axes))
         if frontend:
             xs = [x[:, -S:] for x in xs]
 
@@ -394,8 +405,11 @@ class LM:
             gold = dict(enumerate(spmd.all_reduce(
                 [gold[r] for r in range(mesh.size)], mesh, "model")))
         total = None
+        once = _batch_once(mesh, axes)
         for members in spmd.groups(mesh, "model"):
             r = members[0]
+            if r not in once:
+                continue
             nll = top[r] + torch.log(sums[r]) - gold[r]
             part = (nll * rows("mask", r).float()).sum().to(devs[0])
             total = part if total is None else total + part
@@ -430,26 +444,29 @@ class LM:
 
     def _prefill_mesh(self, params, batch, capacity: int, mesh):
         """``prefill`` over ``mesh`` under ``PREFILL_RULES``: each data row
-        takes its share of the batch, of its frontend embeddings or of its
-        source frames (all of them where "data" does not divide the
-        batch); an encoder's memory first (``_encode_shards``), each
+        (of each pod) takes its share of the batch, of its frontend
+        embeddings or of its source frames (``batch_split``: all of them
+        where the pods and data rows do not divide the batch, the experts
+        then splitting the rows as ``moe.moe_batch_axes`` says); an
+        encoder's memory first (``_encode_shards``), each
         position's copy feeding its cross-attention; a frontend's
         projected embeddings ahead of the tokens; the weights gathered
         over "data" layer by layer (``blocks.shard_weights``), each
         position's q heads through flash, its SSM channels and heads, its
         experts over its data row's tokens
         (``blocks.apply_layer_shards_prefill``); the logits from each
-        position's vocabulary shard, gathered over "model" and "data"."""
+        position's vocabulary shard, gathered over "model", then over
+        "pod" and "data"."""
         cfg = self.cfg
         check_mesh_support(mesh, "prefill")
         B, S = batch["tokens"].shape
-        split = bool(pspec_for(("batch", None), mesh, PREFILL_RULES,
-                               (B, S)))
-        b = B // mesh.shape.get("data", 1) if split else B
+        axes = batch_split(mesh, PREFILL_RULES, B)
+        moe_axes = () if axes else moe_batch_axes(mesh, B)
+        b = B // _positions(mesh, axes)
         devs = mesh.devices
 
         def rows(k):
-            return [_data_rows(batch[k], mesh, r, b)
+            return [_data_rows(batch[k], mesh, r, b, axes)
                     for r in range(mesh.size)]
 
         head = params["head"]
@@ -472,7 +489,7 @@ class LM:
             ws = blocks.shard_weights(cfg, p, mesh, pick_kv=False)
             xs, c = blocks.apply_layer_shards_prefill(
                 cfg, spec, mesh, ws, xs, positions, cs, PREFILL_RULES,
-                memory)
+                memory, moe_axes)
             caches.append(c)
             del ws
         norm = spmd.gathered_over(head["final_norm"], "data")
@@ -484,8 +501,8 @@ class LM:
             zs.append(h @ w.T if cfg.tie_embeddings else h @ w)
         if zs[0].shape[-1] != cfg.vocab_size:
             zs = spmd.all_gather(zs, mesh, "model", dim=-1)
-        if split:
-            zs = spmd.all_gather(zs, mesh, "data", dim=0)
+        if axes:
+            zs = spmd.all_gather(zs, mesh, axes, dim=0)
         return zs, caches
 
     def _decode_mesh(self, params, caches, batch, mesh):
@@ -557,28 +574,52 @@ class _Remat(torch.autograd.Function):
         return (None, None, *full)
 
 
-def _data_rows(t: torch.Tensor, mesh, r: int, b: int) -> torch.Tensor:
-    """Position ``r``'s data row's ``b`` rows of ``t`` (B, ...) on its
-    device: all of them where ``b`` is B."""
+def batch_split(mesh, rules, batch: int) -> Tuple[str, ...]:
+    """The mesh axes a batch of ``batch`` rows splits over under ``rules``
+    (``pspec_for``: "pod" and "data", those the mesh has, where their
+    positions together divide it; none where they do not)."""
+    spec = pspec_for(("batch",), mesh, rules, (batch,))
+    if not spec:
+        return ()
+    return (spec[0],) if isinstance(spec[0], str) else tuple(spec[0])
+
+
+def _positions(mesh, axes: Tuple[str, ...]) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def _batch_once(mesh, axes: Tuple[str, ...]) -> set:
+    """The positions that count their batch piece once: those at index 0
+    along each batch axis ("pod", "data") that does not split it."""
+    copies = [a for a in ("pod", "data") if a in mesh.shape and a not in axes]
+    return {r for r in range(mesh.size)
+            if all(mesh.axis_index(r, a) == 0 for a in copies)}
+
+
+def _data_rows(t: torch.Tensor, mesh, r: int, b: int,
+               axes: Tuple[str, ...]) -> torch.Tensor:
+    """Position ``r``'s ``b`` rows of ``t`` (B, ...) on its device, its
+    piece along the batch axes ``axes`` (``batch_split``): all of them
+    where ``b`` is B."""
     if b != t.shape[0]:
-        t = t.narrow(0, mesh.axis_index(r, "data") * b, b)
+        t = t.narrow(0, spmd.piece_index((axes,), mesh, r)[0] * b, b)
     return t.to(mesh.devices[r])
 
 
 def check_mesh_support(mesh, kind: str = "train") -> None:
     """The meshes the mesh path runs: a mesh of devices over "data" and
-    "model", to train, prefill or decode (``kind``) every family (dense,
-    MoE, SSM, hybrid, encoder-decoder, frontend). A mesh axis beside
-    those two (the multi-pod mesh's "pod") waits for ROADMAP.md §1 item
-    3."""
+    "model", with "pod" ahead of them on a multi-pod mesh, to train,
+    prefill or decode (``kind``) every family (dense, MoE, SSM, hybrid,
+    encoder-decoder, frontend). Any other mesh axis raises: no sharding
+    rule names one."""
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"check_mesh_support: kind {kind!r} is not train, "
                          f"prefill or decode")
     if mesh.devices is None:
         raise ValueError(f"{kind} on a mesh needs its devices "
                          f"(launch.mesh.make_mesh)")
-    extra = set(mesh.axis_names) - {"data", "model"}
+    extra = set(mesh.axis_names) - {"pod", "data", "model"}
     if extra:
         raise NotImplementedError(
-            f"mesh axes {sorted(extra)}: the mesh path runs over 'data' and "
-            f"'model' only (ROADMAP.md §1 item 3)")
+            f"mesh axes {sorted(extra)}: the mesh path runs over 'pod', "
+            f"'data' and 'model' only, the axes the sharding rules name")

@@ -135,6 +135,19 @@ def expert_parallelism(num_experts: int, model: int) -> int:
                                                            model)
 
 
+def moe_batch_axes(mesh, batch: int) -> tuple:
+    """The mesh axes the reference's ``shard_map`` splits a batch of
+    ``batch`` rows over: the batch's axes ("pod", "data", those the mesh
+    has), dropped from the front until their positions divide it (the
+    whole batch on every position where none do). Unlike ``pspec_for``,
+    which drops them all at once, a batch of 2 on a (2, 2, 2) mesh keeps
+    "data" here."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    while axes and batch % math.prod(mesh.shape[a] for a in axes):
+        axes = axes[1:]
+    return axes
+
+
 def moe_shard(xs, ps, mcfg: MoEConfig, mesh):
     """The expert-parallel branch over per-position tensors: ``xs[r]`` a
     data shard's activations (b, S, d), ``ps[r]`` the experts position
@@ -207,10 +220,11 @@ def moe_ffn(x: torch.Tensor, params: dict, mcfg: MoEConfig, *,
     """x: (B, S, d). params: router (d, E), w_gate/w_up (E, d, f), w_down
     (E, f, d). With no mesh the tokens of the whole call share the
     capacity. With a mesh of devices (``launch.mesh.make_mesh``; axes
-    "data" and "model") it is the reference's ``shard_map`` branch: x's
-    rows split over "data" (whole on every data shard when they do not
-    divide), the experts over "model" as ``expert_parallelism`` says, and
-    the result comes back whole on x's device."""
+    "data" and "model", and "pod" ahead of them) it is the reference's
+    ``shard_map`` branch: x's rows split over ``moe_batch_axes`` (whole on
+    every position when none divide), the experts over "model" as
+    ``expert_parallelism`` says, and the result comes back whole on x's
+    device."""
     B, S, d = x.shape
     if mesh is None:
         return _moe_local(x.reshape(B * S, d), params, mcfg).reshape(B, S,
@@ -218,14 +232,15 @@ def moe_ffn(x: torch.Tensor, params: dict, mcfg: MoEConfig, *,
     if mesh.devices is None:
         raise ValueError("moe_ffn over a mesh needs its devices "
                          "(launch.mesh.make_mesh)")
-    D, M = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    M = mesh.shape.get("model", 1)
     E = params["w_gate"].shape[0]
     split = expert_parallelism(E, M) == M and M > 1
-    rows = B // D if B % D == 0 else B
+    axes = moe_batch_axes(mesh, B)
+    rows = B // math.prod(mesh.shape[a] for a in axes)
     xs, ps = [], []
     for r in range(mesh.size):
         dev = mesh.devices[r]
-        i = mesh.axis_index(r, "data") if B % D == 0 else 0
+        i = spmd.piece_index((axes,), mesh, r)[0]
         xs.append(x[i * rows:(i + 1) * rows].to(dev))
         j = mesh.axis_index(r, "model")
         experts = slice(j * E // M, (j + 1) * E // M) if split else \
@@ -233,5 +248,5 @@ def moe_ffn(x: torch.Tensor, params: dict, mcfg: MoEConfig, *,
         ps.append({k: (w if k == "router" else w[experts]).to(dev)
                    for k, w in params.items()})
     outs = moe_shard(xs, ps, mcfg, mesh)
-    data_rows = spmd.groups(mesh, "data")[0] if B % D == 0 else [0]
-    return torch.cat([outs[r].to(x.device) for r in data_rows], dim=0)
+    return torch.cat([outs[r].to(x.device)
+                      for r in spmd.groups(mesh, *axes)[0]], dim=0)

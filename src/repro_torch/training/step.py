@@ -8,7 +8,10 @@ gradient and fp32 accumulator lies where its parameter lies
 through autograd, and a leaf replicated over an axis takes the sum of its
 copies' partial gradients, held once by each copy). Every family trains
 there; a batch's ``embeds`` or ``src_embeds`` split over "data" with its
-tokens, as their ``batch_specs`` axes ``("batch", None, None)`` say.
+tokens, as their ``batch_specs`` axes ``("batch", None, None)`` say. On a
+multi-pod mesh ("pod", "data", "model") the batch splits over the pods
+and data rows together, and a weight, whole across pods, sums its pods'
+partial gradients with the rest of its copies'.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ class TrainState(NamedTuple):
 def mesh_microbatches(mb: int, global_batch: int,
                       mesh: Optional[Mesh]) -> int:
     """``mb`` halved until each microbatch still splits over the mesh's
-    batch shards (``models/api.py``'s rule)."""
+    batch shards (``models/api.py``'s rule for a cell's step)."""
     if mesh is None:
         return mb
     shards = mesh_axis_size(mesh, batch_axes(mesh, TRAIN_RULES))
@@ -57,8 +60,9 @@ def make_train_step(lm: LM, opt_cfg: adamw.AdamWConfig, *,
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``microbatches`` splits the batch on its leading axis into that many
-    equal parts, run one after another (on a mesh, halved until a
-    microbatch splits over the data shards); their gradients accumulate in
+    equal parts, run one after another (on a mesh too, as the reference's
+    step: a microbatch that its pods and data rows do not divide is whole
+    on every position, ``LM.train_loss``); their gradients accumulate in
     ``accum_dtype`` ("float32" or "bfloat16") and are divided by the count,
     and the loss is the mean of theirs. The step returns new tensors and
     leaves ``state`` as it was. With ``mesh`` the state is
@@ -95,7 +99,7 @@ def make_train_step(lm: LM, opt_cfg: adamw.AdamWConfig, *,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
         b = next(iter(batch.values())).shape[0]
-        mbs = mesh_microbatches(microbatches, b, mesh)
+        mbs = microbatches
         if mbs == 1:
             loss, grads = loss_and_grads(params, batch)
         else:

@@ -144,9 +144,9 @@ def test_unported_layer_kinds_raise(what, item):
     """Every layer kind runs now; training (``item 9``) and expert
     parallelism (``item 7b``) are ported: the loss runs, and so does
     ``moe_ffn`` over a mesh (one data shard, two model shards: the
-    unsharded call's capacity, so its output). What the port still lacks
-    raises, naming its ROADMAP item: a mesh axis beside "data" and
-    "model" (item 3); every family trains on a (data, model) mesh."""
+    unsharded call's capacity, so its output). Every family trains on a
+    (data, model) mesh and on a multi-pod one (item 3): a "pod" axis is
+    taken, and a mesh axis that no sharding rule names raises."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe
     from repro_torch.models.api import make_demo_inputs
@@ -157,10 +157,13 @@ def test_unported_layer_kinds_raise(what, item):
     if what == "train_loss":
         batch = make_demo_inputs(cfg, tc.ShapeConfig("t", 16, 2, "train"))
         assert torch.isfinite(LM(cfg).train_loss(params, batch))
-        with pytest.raises(NotImplementedError, match="item 3"):
+        make_train_step(LM(cfgs("mamba2-2.7b")[1]), AdamWConfig(),
+                        mesh=make_mesh((1, 1, 2), ("pod", "data", "model"),
+                                       "cpu"))
+        with pytest.raises(NotImplementedError, match="sharding rules"):
             make_train_step(LM(cfgs("mamba2-2.7b")[1]), AdamWConfig(),
                             mesh=make_mesh((1, 1, 2),
-                                           ("pod", "data", "model"), "cpu"))
+                                           ("stage", "data", "model"), "cpu"))
         return
     x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator(
     ).manual_seed(1))

@@ -15,13 +15,24 @@
   pairs; a band for train, whose count adds remat's recompute and the
   plain flash backward); a flash call on meta counted by the kernel's
   formula, not the plain version's.
-- ``--all --report`` over reduced configs at small shapes writes every
-  cell's JSON and reads it back; the inspector runs a reduced cell on the
-  CPU.
+- Collective bytes: a step run over a mesh of meta positions counts, at
+  every position, exactly what the same step counts on CPU positions
+  (reduced llama3-8b and qwen3-moe, train, prefill and decode, on (2, 2)
+  and (2, 2, 2)); the one-and-two-period extrapolation of a cell equals
+  its full-depth count exactly (a train step: one microbatch's count
+  times their number); a production cell's collective term on both
+  meshes.
+- ``--all --report`` over reduced configs at small shapes on both
+  production meshes writes every cell's JSON and reads it back; each
+  cell's collective count there runs on (1, 2) or (2, 1, 2) in place of
+  the production mesh (at 256 or 512 positions a count runs every
+  position's operations on meta: seconds a cell). The inspector runs a
+  reduced cell on the CPU.
 """
 import dataclasses
 import json
 import os
+import time
 
 import pytest
 
@@ -37,6 +48,7 @@ import repro.distributed.sharding as rsh  # noqa: E402
 import repro.models.api as ref_api  # noqa: E402
 
 import repro_torch.configs as tc  # noqa: E402
+import repro_torch.distributed.sharding as rsh_port  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -182,11 +194,28 @@ SMALL = {"train_4k": ShapeConfig("train_4k", 32, 32, "train"),
          "long_500k": ShapeConfig("long_500k", 128, 1, "decode")}
 
 
+def small_mesh(*, multi_pod=False):
+    return tc_mesh((2, 1, 2) if multi_pod else (1, 2))
+
+
+def tc_mesh(shape):
+    from repro_torch.distributed.sharding import Mesh
+    return Mesh(("pod", "data", "model")[-len(shape):], shape)
+
+
 def reduced(monkeypatch, tmp_path):
+    """Reduced configs at ``SMALL`` shapes on the production meshes, each
+    cell's collectives counted on ``small_mesh`` of the same axes."""
     orig = tc.get_config
     monkeypatch.setattr(dryrun, "get_config", lambda a: orig(a).reduced())
     monkeypatch.setattr(dryrun, "SHAPES", SMALL)
     monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    costs = dryrun.collective_costs
+
+    def on_small_mesh(cfg, shape, mesh_desc, *args, **kw):
+        multi = "pod" in mesh_desc.axis_names
+        return costs(cfg, shape, small_mesh(multi_pod=multi), *args, **kw)
+    monkeypatch.setattr(dryrun, "collective_costs", on_small_mesh)
 
 
 def test_all_and_report_on_reduced_configs(monkeypatch, tmp_path, capsys):
@@ -200,8 +229,15 @@ def test_all_and_report_on_reduced_configs(monkeypatch, tmp_path, capsys):
         if rec["status"] == "ok" and rec["mesh"] == "single":
             rl = rec["roofline"]
             assert rl["flops_per_device"] > 0 and rl["memory_s"] > 0
-            assert rl["collective_s"] is None and "item 3" in \
-                rl["collective_note"]
+            assert rl["collective_s"] > 0 and "collective_note" not in rl
+            assert rl["collective_detail"] == \
+                rec["collective_detail_full_compile"]
+        if rec["status"] == "ok":
+            assert rec["devices"] == (256 if rec["mesh"] == "single"
+                                      else 512)
+            assert sum(rec["collective_detail_full_compile"].values()) > 0
+            assert rec["collective_count"]["positions"] == (
+                2 if rec["mesh"] == "single" else 4)
         if rec["mesh"] == "multi":
             assert "roofline" not in rec
     # cached: a second --all runs nothing
@@ -242,3 +278,124 @@ def test_inspector_on_cpu(monkeypatch, capsys):
     with pytest.raises(SystemExit):
         inspect_hlo.main(["--arch", "llama3-8b", "--shape", "decode_32k",
                           "--mesh", "single", "--device", "cpu"])
+
+
+def small_bundle(cfg, shape, mesh_desc, **kw):
+    rules = rsh_port.rules_for_shape(shape.kind)
+    with rsh_port.sharding_ctx(mesh_desc, rules):
+        return make_step_bundle(cfg, shape, **kw), rules
+
+
+COLL_SHAPES = [ShapeConfig("t", 16, 8, "train"),
+               ShapeConfig("p", 32, 4, "prefill"),
+               ShapeConfig("d", 32, 4, "decode")]
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 2, 2)])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-moe-30b-a3b"])
+def test_meta_collectives_equal_cpu(arch, mesh_shape):
+    """The same step run over meta positions and over CPU positions (zero
+    weights and inputs) counts the same bytes of every kind at every
+    position, exactly: the meta run's memoized results (``_MetaMemo``)
+    and its flash backward in one chunk give the CPU's shapes and
+    dtypes."""
+    cfg = tc.get_config(arch).reduced()
+    desc = tc_mesh(mesh_shape)
+    for shape in COLL_SHAPES:
+        b, rules = small_bundle(cfg, shape, desc, microbatches=1)
+        meta = dryrun.count_collectives(b, cfg, desc, rules, "meta")
+        cpu = dryrun.count_collectives(b, cfg, desc, rules, "cpu")
+        assert meta["per_position"] == cpu["per_position"], shape.kind
+        assert sum(meta["bytes"].values()) > 0
+        assert meta["positions"] == desc.size
+
+
+@pytest.mark.parametrize("arch,layers,kinds", [
+    ("llama3-8b", 3, ("train", "prefill", "decode")),
+    ("gemma3-1b", 18, ("decode",)), ("seamless-m4t-medium", 3, ("prefill",))])
+def test_collective_extrapolation_equals_full_depth(arch, layers, kinds):
+    """``collective_costs`` from one and two periods of the layer pattern
+    (gemma3's six layers, seamless's encoder scaled with its decoder) at
+    one microbatch, extrapolated to three periods (and a train step's two
+    microbatches), equals the count of the whole step at full depth, on
+    (2, 2, 2)."""
+    cfg = tc.get_config(arch).reduced()
+    kw = {"num_layers": layers}
+    if cfg.num_encoder_layers:
+        kw["num_encoder_layers"] = layers
+    cfg = dataclasses.replace(cfg, **kw)
+    desc = tc_mesh((2, 2, 2))
+    for shape in COLL_SHAPES:
+        if shape.kind not in kinds:
+            continue
+        b, rules = small_bundle(cfg, shape, desc, microbatches=2)
+        whole = dryrun.count_collectives(b, cfg, desc, rules)["bytes"]
+        mb = b.static_meta.get("microbatches", 1)
+        got = dryrun.collective_costs(cfg, shape, desc, rules, mb, {})
+        assert got["periods_full"] == 3
+        assert got["bytes"] == whole, shape.kind
+
+
+def test_meta_memo_gives_meta_results():
+    """Under ``_MetaMemo`` an operation met again (other tensors of the
+    same shapes, strides and dtypes) gives what plain meta gives: shape,
+    strides and dtype, a Python int and float apart, a tuple as a tuple,
+    a view still a view of its input; the one-chunk flash backward is
+    undone on leaving."""
+    def cases():
+        x = torch.empty((4, 6), device="meta")
+        i = torch.empty((4, 6), dtype=torch.int32, device="meta")
+        t = torch.empty((6, 4), device="meta").t()      # not contiguous
+        return [x * 2.0, i * 2, i * 2.0, i / 2, t + 1, t.exp(),
+                torch.cat([x, t]), x.max(dim=1), torch.sort(i, dim=0),
+                x.sum(dim=(0,), keepdim=True), x @ x.t(), x[:, 1:3],
+                (x > 0).to(torch.bfloat16), torch.where(x > 0, i, x)]
+
+    def flat(outs):
+        return [o if isinstance(o, tuple) else (o,) for o in outs]
+    want = flat(cases())
+    with dryrun._MetaMemo() as memo:
+        first, again = flat(cases()), flat(cases())
+    assert memo.made
+    for w, f, a in zip(want, first, again):
+        assert len(w) == len(f) == len(a)
+        for wt, ft, at in zip(w, f, a):
+            for got in (ft, at):
+                assert (got.shape, got.stride(), got.dtype) == (
+                    wt.shape, wt.stride(), wt.dtype)
+    assert again[11][0]._base is not None        # x[:, 1:3] stays a view
+    keep = dryrun.attention.BWD_CHUNK_Q
+    with dryrun._one_backward_chunk():
+        assert dryrun.attention.BWD_CHUNK_Q > 2 ** 40
+    assert dryrun.attention.BWD_CHUNK_Q == keep
+
+
+def test_production_cell_collective_term(monkeypatch, tmp_path, capsys):
+    """A production cell on both meshes (256 and 512 meta positions): the
+    single-pod record's roofline has a collective term, from the count
+    recorded under the reference's key on both. The cell is llama3-8b's
+    decode: a dense decoder's pattern is one layer, so its count runs
+    three layers; gemma3-1b's six-layer pattern runs eighteen, 22 s and 42
+    s on a CPU host (PERF.md), too long for this file's share of the
+    suite."""
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    t0 = time.time()
+    assert dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k",
+                        "--mesh", "both"]) == 0
+    took = time.time() - t0
+    single = json.loads((tmp_path / "llama3-8b__decode_32k__single.json")
+                        .read_text())
+    multi = json.loads((tmp_path / "llama3-8b__decode_32k__multi.json")
+                       .read_text())
+    for rec, n in ((single, 256), (multi, 512)):
+        assert rec["status"] == "ok"
+        assert rec["collective_count"]["positions"] == n
+        coll = rec["collective_detail_full_compile"]
+        assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
+    rl = single["roofline"]
+    assert rl["collective_s"] == pytest.approx(
+        sum(single["collective_detail_full_compile"].values())
+        / roofline.H100_SXM.link_bw, rel=1e-12)
+    assert "roofline" not in multi
+    print(f"llama3-8b decode_32k on both meshes: {took:.1f} s")
+    assert took < 60

@@ -455,15 +455,15 @@ def test_other_families_refuse_the_serving_mesh(arch):
     """Every family prefills and decodes on a (data, model) mesh (the
     MoE, SSM and hybrid families: ``tests/test_torch_mesh_serve_families.
     py``; the frontend and encoder-decoder families:
-    ``tests/test_torch_mesh_serve_encdec.py``); a mesh with a "pod" axis
-    beside those two raises on both paths, for every family, naming the
-    ROADMAP item that ports it."""
+    ``tests/test_torch_mesh_serve_encdec.py``), and on a multi-pod mesh
+    (``tests/test_torch_mesh_pod.py``); a mesh axis that no sharding rule
+    names raises on both paths, for every family."""
     cfg = dataclasses.replace(tc.get_config(arch).reduced(), dtype="float32")
     lm = LM(cfg)
-    mesh = make_mesh((1, 2, 2), ("pod", "data", "model"), "cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    mesh = make_mesh((1, 2, 2), ("stage", "data", "model"), "cpu")
+    with pytest.raises(NotImplementedError, match="sharding rules"):
         lm.prefill({}, batch_of(cfg)[0], 16, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="sharding rules"):
         lm.decode_step({}, [], {"token": torch.zeros(4, dtype=torch.long),
                                 "cache_len": 3}, mesh=mesh)
 

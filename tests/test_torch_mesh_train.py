@@ -429,36 +429,38 @@ def test_other_families_on_a_mesh_name_item_3(monkeypatch, capsys):
     (``tests/test_torch_mesh_families.py``), and prefills and decodes on
     one (``tests/test_torch_mesh_serve.py``,
     ``tests/test_torch_mesh_serve_families.py``,
-    ``tests/test_torch_mesh_serve_encdec.py``); what still raises names
-    the ROADMAP item that ports it: a mesh axis beside "data" and "model",
-    for each of the other families, to train, prefill or decode, and the
-    inspector's ``--mesh`` with a "pod" axis on a frontend config's
-    prefill cell; on a (data, model) mesh the reduced paligemma's prefill
-    cell runs there."""
-    mesh = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
+    ``tests/test_torch_mesh_serve_encdec.py``), and does all three on a
+    multi-pod mesh (``tests/test_torch_mesh_pod.py``): a "pod" axis is
+    taken for each of the other families, to train, prefill or decode,
+    and a mesh axis that no sharding rule names raises; the inspector's
+    ``--mesh`` runs the reduced paligemma's prefill cell on (2, 2) and on
+    (1, 2, 2), one collective line a position."""
+    pod = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
+    other = make_mesh((1, 1, 2), ("stage", "data", "model"), "cpu")
     for arch in ("mamba2-2.7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="item 3"):
+        steplib.make_train_step(LM(cfg_of(arch)), adamw.AdamWConfig(),
+                                mesh=pod)
+        with pytest.raises(NotImplementedError, match="sharding rules"):
             steplib.make_train_step(LM(cfg_of(arch)), adamw.AdamWConfig(),
-                                    mesh=mesh)
+                                    mesh=other)
         for kind in ("prefill", "decode"):
-            with pytest.raises(NotImplementedError, match="item 3"):
-                check_mesh_support(mesh, kind)
+            check_mesh_support(pod, kind)
+            with pytest.raises(NotImplementedError, match="sharding rules"):
+                check_mesh_support(other, kind)
     orig = tc.get_config
     monkeypatch.setattr(tc, "get_config", lambda a: orig(a).reduced())
     monkeypatch.setattr(tc, "SHAPES",
                         {"p": tc.ShapeConfig("p", 32, 4, "prefill")})
-    with pytest.raises(NotImplementedError, match="item 3"):
-        inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "p",
-                          "--mesh", "1,2,2", "--device", "cpu"])
-    assert inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "p",
-                             "--mesh", "2,2", "--device", "cpu", "--top",
-                             "5"]) == 0
-    out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("# paligemma-3b p periods=1")
-    coll = [ln for ln in out if ln.startswith("# position")]
-    assert len(coll) == 4
-    assert all("'all-gather': 0," not in ln for ln in coll)
+    for mesh, n in (("2,2", 4), ("1,2,2", 4)):
+        assert inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "p",
+                                 "--mesh", mesh, "--device", "cpu", "--top",
+                                 "5"]) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith("# paligemma-3b p periods=1")
+        coll = [ln for ln in out if ln.startswith("# position")]
+        assert len(coll) == n
+        assert all("'all-gather': 0," not in ln for ln in coll)
 
 
 def test_mesh_on_cuda_without_the_cards_gives_the_recipe():
@@ -499,8 +501,7 @@ def test_inspector_traces_a_mesh_step(monkeypatch, capsys):
     assert len(coll) == 4
     assert all("'all-reduce'" in ln and "'all-reduce': 0," not in ln
                for ln in coll)
-    # so do an SSM's and a frontend config's; a mesh with a "pod" axis
-    # does not, and names the item that ports it
+    # so do an SSM's and a frontend config's, and on a multi-pod mesh
     for arch in ("mamba2-2.7b", "paligemma-3b"):
         assert inspect_hlo.main(["--arch", arch, "--shape", "d", "--mesh",
                                  "2,2", "--device", "cpu", "--top",
@@ -510,9 +511,14 @@ def test_inspector_traces_a_mesh_step(monkeypatch, capsys):
         coll = [ln for ln in out if ln.startswith("# position")]
         assert len(coll) == 4
         assert all("'all-reduce': 0," not in ln for ln in coll)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "d", "--mesh",
-                          "1,2,2", "--device", "cpu"])
+    assert inspect_hlo.main(["--arch", "paligemma-3b", "--shape", "d",
+                             "--mesh", "2,1,2", "--device", "cpu", "--top",
+                             "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "mesh={'pod': 2, 'data': 1, 'model': 2}, 4 shards here" in out[0]
+    coll = [ln for ln in out if ln.startswith("# position")]
+    assert len(coll) == 4
+    assert all("'all-reduce': 0," not in ln for ln in coll)
 
 
 def test_inspector_traces_a_mamba2_mesh_step(monkeypatch, capsys):

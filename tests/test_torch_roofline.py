@@ -114,14 +114,21 @@ def test_model_flops_and_memory_model_equal_reference(arch):
 
 
 def test_collectives_unknown_on_a_mesh():
-    """Where no run counted them (the dry-run's meshes), a mesh's
-    collective bytes are unknown: None with the reason, never 0."""
+    """Where nothing counted them, a mesh's collective bytes are unknown:
+    None, never 0, and the term does not bind; counted ones (the
+    dry-run's, a run's) give the term; one device counts none."""
     cfg = tc.get_config("llama3-8b")
     s = roofline.summarize(cfg, tc.SHAPES["decode_32k"], 256,
                            {"flops": 1e12}, None, {"total": 1e9})
     assert s["collective_s"] is None
     assert s["collective_bytes_per_device"] is None
-    assert "item 3" in s["collective_note"]
+    assert s["bottleneck"] == "compute" and "collective_note" not in s
+    counted = roofline.summarize(
+        cfg, tc.SHAPES["decode_32k"], 256, {"flops": 1e12},
+        {"all-reduce": 9e9, "all-gather": 0, "reduce-scatter": 0},
+        {"total": 1e9})
+    assert counted["collective_s"] == 9e9 / roofline.H100_SXM.link_bw
+    assert counted["bottleneck"] == "collective"
     one = roofline.summarize(cfg, tc.SHAPES["decode_32k"], 1,
                              {"flops": 1e12}, {}, {"total": 1e9})
     assert one["collective_s"] == 0.0 and "collective_note" not in one

@@ -75,16 +75,22 @@ def test_remat_group_preserves_loss():
 def test_mesh_raises_naming_item_3():
     """A mesh trains every family (``tests/test_torch_mesh_families.py``)
     and serves the dense decoder families
-    (``tests/test_torch_mesh_serve.py``); what the launcher's step still
-    refuses, a mesh axis other than "data" and "model", raises naming the
-    ROADMAP item that ports it."""
+    (``tests/test_torch_mesh_serve.py``), the multi-pod mesh too
+    (``tests/test_torch_mesh_pod.py``); what the step still refuses, a
+    mesh axis that no sharding rule names, raises; the launcher's
+    ``--mesh`` keeps the reference's two axes, and a third raises."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optimizer.adamw import AdamWConfig
     from repro_torch.training.step import make_train_step
-    mesh = make_mesh((1, 1, 2), ("pod", "data", "model"), "cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    make_train_step(LM(tc.get_config("mamba2-2.7b").reduced()),
+                    AdamWConfig(), mesh=make_mesh(
+                        (1, 1, 2), ("pod", "data", "model"), "cpu"))
+    mesh = make_mesh((1, 1, 2), ("stage", "data", "model"), "cpu")
+    with pytest.raises(NotImplementedError, match="sharding rules"):
         make_train_step(LM(tc.get_config("mamba2-2.7b").reduced()),
                         AdamWConfig(), mesh=mesh)
+    with pytest.raises(ValueError, match="differ in length"):
+        main(ARGS + ["--mesh", "1,1,2", "--steps", "1"])
 
 
 MESH_ARGS = ARGS[2:] + ["--microbatches", "2", "--steps", "3", "--reduced"]
@@ -140,6 +146,8 @@ def test_launcher_and_examples_need_cuda_unless_asked_for_cpu():
         main(["--arch", "yi-34b", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         load_example("quickstart").main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_example("serve_small_real").main([])
 
 
 def test_quickstart_example_on_cpu(capsys):

@@ -2,10 +2,12 @@
 (``tests/test_torch_moe_ep.py``, ``tests/test_torch_mesh_train.py``,
 ``tests/test_torch_mesh_families.py``, ``tests/test_torch_mesh_serve.py``,
 ``tests/test_torch_mesh_serve_families.py``,
-``tests/test_torch_mesh_serve_encdec.py``).
+``tests/test_torch_mesh_serve_encdec.py``), and on a (pod, data, model)
+mesh (``tests/test_torch_mesh_pod.py``).
 
 Run in a process of its own, with four XLA host devices forced before jax
-loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
+loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``), eight
+for ``pod``:
 
     python tests/torch_mesh_ref.py moe OUT.pkl
     python tests/torch_mesh_ref.py train OUT.pkl {float32,int8}
@@ -13,6 +15,7 @@ loads (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
     python tests/torch_mesh_ref.py serve OUT.pkl
     python tests/torch_mesh_ref.py serve_families OUT.pkl
     python tests/torch_mesh_ref.py serve_encdec OUT.pkl
+    python tests/torch_mesh_ref.py pod OUT.pkl
 
 It pickles numpy trees. The mesh is a ``jax.sharding.Mesh`` over the
 devices, whose axes are Auto: the reference's sharding constraints run
@@ -85,6 +88,26 @@ SERVE_ENCDEC_CASES = tuple((arch, shape, None)
                            for shape in ((2, 2), (1, 4), (4, 1))) + (
     ("seamless-m4t-medium", (2, 2), 6),)
 SERVE_ENCDEC_CAP = 64
+
+
+# the multi-pod mesh (2, 2, 2) over eight XLA host devices: one fp32 train
+# step (TRAIN_B x TRAIN_S in TRAIN_MB microbatches, whose 2 rows the 4
+# (pod, data) positions do not divide: the activations stay whole while
+# the MoE's shard_map splits them over "data") of each POD_TRAIN_ARCHS
+# entry; prefill and SERVE_STEPS decode steps at capacity 64 of each
+# POD_SERVE_CASES entry (arch, batch), reduced fp32, batch 2 whole on
+# every position likewise
+POD_SHAPE = (2, 2, 2)
+POD_DEVICES = 8
+POD_TRAIN_ARCHS = ("llama3-8b", "qwen3-moe-30b-a3b")
+POD_SERVE_CASES = (("llama3-8b", 4), ("qwen3-moe-30b-a3b", 4),
+                   ("mamba2-2.7b", 4), ("seamless-m4t-medium", 4),
+                   ("llama3-8b", 2))
+POD_CAP = 64
+
+
+def pod_serve_name(arch, batch):
+    return f"{arch}@b{batch}"
 
 
 def serve_encdec_name(arch, shape, frames):
@@ -201,10 +224,12 @@ def moe_inputs(cfg, E, skewed, seed):
 
 
 def auto_mesh(shape):
+    """An Auto-axes mesh over ("data", "model"), or ("pod", "data",
+    "model") for a shape of three."""
     import jax
     from jax.sharding import Mesh
     devs = np.array(jax.devices()[:math.prod(shape)]).reshape(shape)
-    return Mesh(devs, ("data", "model"))
+    return Mesh(devs, ("pod", "data", "model")[-len(shape):])
 
 
 def _unchecked_shard_map():
@@ -333,6 +358,7 @@ def _serve_case(lm, params, toks, shape, cap, embeds=None):
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     mesh = auto_mesh(shape)
     key, plen = frontend_key(lm.cfg), serve_prompt(lm.cfg)
+    B = toks.shape[0]
 
     def shardings(axes, rules):
         return jax.tree.map(lambda a: NamedSharding(
@@ -342,12 +368,12 @@ def _serve_case(lm, params, toks, shape, cap, embeds=None):
     batch_axes = {"tokens": (("batch", None), batch["tokens"].shape)}
     src_len = 0
     if key is not None:
-        spec = batch_specs(lm.cfg, ShapeConfig("p", SERVE_PROMPT, SERVE_B,
+        spec = batch_specs(lm.cfg, ShapeConfig("p", SERVE_PROMPT, B,
                                                "prefill"))[key]
         batch[key] = embeds
         batch_axes[key] = (spec.logical_axes, embeds.shape)
         src_len = embeds.shape[1] if key == "src_embeds" else 0
-    cache_axes = specs_logical_axes(lm.cache_specs(SERVE_B, cap, src_len))
+    cache_axes = specs_logical_axes(lm.cache_specs(B, cap, src_len))
 
     def run():
         with sharding_ctx(mesh, PREFILL_RULES):
@@ -363,7 +389,7 @@ def _serve_case(lm, params, toks, shape, cap, embeds=None):
             step = jax.jit(lm.decode_step, in_shardings=(
                 shardings(lm.param_axes(), DECODE_RULES),
                 shardings(cache_axes, DECODE_RULES),
-                shardings({"token": (("batch",), (SERVE_B,)),
+                shardings({"token": (("batch",), (B,)),
                            "cache_len": ((), ())}, DECODE_RULES)))
             caches = jax.device_put(caches,
                                     shardings(cache_axes, DECODE_RULES))
@@ -452,12 +478,53 @@ def serve_encdec_runs():
     return out
 
 
+def pod_runs():
+    """``train_runs`` (fp32 moments) for ``POD_TRAIN_ARCHS`` and
+    ``serve_runs`` for ``POD_SERVE_CASES``, all on ``POD_SHAPE``, each
+    from ``PRNGKey(0)`` weights."""
+    import jax
+    import repro.configs as rc
+    from repro.data.pipeline import SyntheticPacked
+    from repro.distributed.sharding import TRAIN_RULES, sharding_ctx
+    from repro.models.lm import LM
+    from repro.optimizer import adamw
+    from repro.training import step as steplib
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    out = {"train": {}, "serve": {}}
+    for arch in POD_TRAIN_ARCHS:
+        cfg = serve_cfg(rc, arch, {})
+        lm = LM(cfg)
+        batch = next(iter(SyntheticPacked(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                          seed=0)))
+        opt = adamw.AdamWConfig(warmup_steps=1)
+        fn = steplib.make_train_step(lm, opt, microbatches=TRAIN_MB)
+        with sharding_ctx(auto_mesh(POD_SHAPE), TRAIN_RULES):
+            state = steplib.init_train_state(lm, jax.random.PRNGKey(0), opt)
+            new, met = jax.jit(fn)(state, batch)
+        out["train"][arch] = dict(
+            batch=batch, params0=to_np(state.params),
+            loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+            state=to_np(new))
+    for arch, B in POD_SERVE_CASES:
+        cfg = serve_cfg(rc, arch, {})
+        lm = LM(cfg)
+        params = lm.init(jax.random.PRNGKey(0))
+        toks = serve_tokens(cfg)[:B]
+        embeds = serve_embeds(cfg)
+        embeds = embeds[:B] if embeds is not None else None
+        case = _serve_case(lm, params, toks, POD_SHAPE, POD_CAP, embeds)
+        case.update(params=to_np(params), tokens=toks, embeds=embeds)
+        out["serve"][pod_serve_name(arch, B)] = case
+    return out
+
+
 if __name__ == "__main__":
     what, path = sys.argv[1], sys.argv[2]
     res = (moe_runs() if what == "moe" else family_runs()
            if what == "families" else serve_runs() if what == "serve"
            else serve_family_runs() if what == "serve_families"
            else serve_encdec_runs() if what == "serve_encdec"
+           else pod_runs() if what == "pod"
            else train_runs(sys.argv[3:]))
     with open(path, "wb") as fh:
         pickle.dump(res, fh)
