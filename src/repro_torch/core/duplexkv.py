@@ -21,6 +21,7 @@ engine.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from repro_torch.configs.base import HardwareProfile, ModelConfig, ServingConfig
@@ -174,6 +175,12 @@ class DuplexKV:
         # when attached, every transfer descriptor this engine times is ALSO
         # executed as real row movement (device pool <-> host numpy tier).
         self.data = None
+        # rows the backend moved to the host tier for eager demotion (in
+        # the iteration, or carried to the next in pipelined mode: the rows
+        # move when issued either way), and the host wall spent on them;
+        # the rest of the backend's D2H rows are rotation's and migration's
+        self.eager_d2h_rows = 0
+        self.eager_d2h_wall_s = 0.0
 
     def attach_data_backend(self, backend) -> None:
         """Attach a physical KV store. ``backend`` must provide
@@ -425,7 +432,11 @@ class DuplexKV:
                     self.d2h_bytes_total += eager_stats.d2h_bytes
                     self.d2h_busy_s_total += eager_stats.d2h_time
                     if self.data is not None:
+                        t0 = time.monotonic_ns()
                         self.data.run_d2h(descs)
+                        self.eager_d2h_wall_s += (
+                            time.monotonic_ns() - t0) / 1e9
+                        self.eager_d2h_rows += len(descs)
                     if self.pipelined:
                         # flags stay set while this iteration's kernels run:
                         # the copy streams under compute (reads-only — eager

@@ -142,6 +142,12 @@ class Request:
     pre_token_rotary_s: float = 0.0
     # non-None while the request sits in ROTARY pre-first-token
     _t_rotary_since: Optional[float] = None
+    # -- wall stamps (``time.monotonic_ns``; observability only, never read
+    # by scheduling): submission, the plan of the first prefill chunk, and
+    # the last rotate_out until its swap-in completes
+    wall_submit_ns: Optional[int] = None
+    wall_first_chunk_ns: Optional[int] = None
+    wall_rotated_ns: Optional[int] = None
 
     @property
     def prefill_done(self) -> bool:

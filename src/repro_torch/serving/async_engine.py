@@ -241,7 +241,11 @@ class AsyncServingEngine:
                      ) -> AsyncRequestHandle:
         """Submit a request; resolves once the driver thread registered it.
         ``arrival_time`` defaults to "now" on the wall-anchored engine clock
-        (explicit values are the replay/testing path, ``pace=False``)."""
+        (explicit values are the replay/testing path, ``pace=False``). The
+        request's wall submission stamp is this call's, on the clients'
+        ``time.monotonic`` clock: its queue wait includes the hand-over to
+        the driver thread."""
+        submitted_ns = time.monotonic_ns()
         self._check_admitting()
         queue: asyncio.Queue = asyncio.Queue()
         fut = self._loop.create_future()
@@ -263,6 +267,7 @@ class AsyncServingEngine:
             except BaseException as e:   # bad params -> client error
                 self._resolve(fut, exc=e)
                 return
+            h.request.wall_submit_ns = submitted_ns
             ah = AsyncRequestHandle(h, self, queue)
             self._live[h.req_id] = (h, ah)
             self._resolve(fut, result=ah)

@@ -23,6 +23,8 @@ import itertools
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from torch.profiler import record_function
+
 from repro_torch.configs.base import (HardwareProfile, ModelConfig, ServingConfig,
                                       SLOConfig, GH200)
 from repro_torch.core.blocktable import OutOfBlocks
@@ -34,6 +36,7 @@ from repro_torch.serving.executor import (BatchPlan, Executor,
                                           RealExecutorAdapter, SimExecutor)
 from repro_torch.serving.outputs import DriverClaim, OutputCollector, RequestHandle
 from repro_torch.serving.schedulers import Scheduler, make_scheduler
+from repro_torch.serving.telemetry import PHASES
 
 
 @dataclasses.dataclass
@@ -67,6 +70,69 @@ class EngineStats:
                     transfer_ms=self.transfer_ms,
                     execute_ms=self.execute_ms,
                     overlap_ms=self.overlap_ms)
+
+
+@dataclasses.dataclass
+class WallStats:
+    """Wall seconds on the host's monotonic clock (``time.monotonic_ns``),
+    apart from ``EngineStats``, whose rows are modelled and deterministic:
+    nothing in the engine reads these back. ``<phase>_wall_s`` partition
+    ``step_wall_s``, the non-idle steps' wall, exactly. A queue wait runs
+    from a request's submission to the plan of its first prefill chunk; a
+    time out from its ``rotate_out`` to its ``complete_swap_in``."""
+    schedule_wall_s: float = 0.0       # ingest, schedule, admission, build
+    kv_plan_wall_s: float = 0.0        # plan_iteration and its row movement
+    execute_wall_s: float = 0.0        # execute, or execute_async().wait()
+    commit_wall_s: float = 0.0         # tokens, finishes, output dispatch
+    step_wall_s: float = 0.0
+    queue_wait_wall_s: float = 0.0
+    queue_waits: int = 0
+    rotated_out_wall_s: float = 0.0
+    rotation_returns: int = 0
+
+    def add_step(self, ns: Sequence[int]) -> None:
+        """Count one step from its boundary readings (``StepWalls.ns``)."""
+        for phase, a, b in zip(PHASES, ns, ns[1:]):
+            key = f"{phase}_wall_s"
+            setattr(self, key, getattr(self, key) + (b - a) / 1e9)
+        self.step_wall_s += (ns[-1] - ns[0]) / 1e9
+
+
+class StepWalls:
+    """One ``time.monotonic_ns()`` reading at each phase boundary of one
+    step (``ns``), so the phases partition it exactly. A phase's
+    ``superinfer.<phase>`` profiler range opens before the reading that
+    starts the phase and closes after the one that ends it, so on the
+    profiler's timeline each reading lies inside the ranges of both phases
+    it divides. ``execute`` has no range: the runner's cover it."""
+
+    RANGED = frozenset(("schedule", "kv_plan", "commit"))
+
+    def __init__(self) -> None:
+        self.ns: List[int] = []
+        self._range = None
+        self.next("schedule")
+
+    def next(self, phase: str) -> None:
+        """The boundary before ``phase``."""
+        rf = None
+        if phase in self.RANGED:
+            rf = record_function("superinfer." + phase)
+            rf.__enter__()
+        self.ns.append(time.monotonic_ns())
+        self.close()
+        self._range = rf
+
+    def end(self) -> None:
+        """The step's last reading; the commit range stays open until
+        ``close``, so what the flight recorder stamps with the readings
+        is recorded inside it."""
+        self.ns.append(time.monotonic_ns())
+
+    def close(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
 
 
 @dataclasses.dataclass
@@ -104,11 +170,13 @@ class AdmissionController:
     """
 
     def __init__(self, kv: DuplexKV, stats: EngineStats, block_size: int,
-                 executor: Optional[Executor] = None):
+                 executor: Optional[Executor] = None,
+                 walls: Optional[WallStats] = None):
         self.kv = kv
         self.stats = stats
         self.bs = block_size
         self.executor = executor or Executor()   # default: no-op hooks
+        self.walls = walls or WallStats()
 
     def _admit_need(self, r: Request, kv_view) -> int:
         """HBM blocks the request must still acquire. With the prefix cache
@@ -137,6 +205,7 @@ class AdmissionController:
                 continue
             out.preempt_ids.append(r.req_id)
             r.rotate_out(t)
+            r.wall_rotated_ns = time.monotonic_ns()
             self.stats.active_rotations += 1
             self.executor.swap_out(r.req_id)
 
@@ -159,6 +228,7 @@ class AdmissionController:
                         t: Optional[float] = None) -> None:
         out.preempt_ids.append(r.req_id)
         r.rotate_out(t)
+        r.wall_rotated_ns = time.monotonic_ns()
         self.stats.passive_preemptions += 1
         self.executor.swap_out(r.req_id)
 
@@ -167,6 +237,11 @@ class AdmissionController:
 
     def complete_swap_in(self, r: Request, t: float) -> None:
         r.resume(t)
+        if r.wall_rotated_ns is not None:
+            self.walls.rotated_out_wall_s += (
+                time.monotonic_ns() - r.wall_rotated_ns) / 1e9
+            self.walls.rotation_returns += 1
+            r.wall_rotated_ns = None
         self.executor.swap_in(r.req_id)
 
 
@@ -216,6 +291,13 @@ class BatchBuilder:
                 continue
             if r.state == RequestState.WAITING:
                 self.admission.start_prefill(r, t)
+            if r.wall_first_chunk_ns is None:
+                r.wall_first_chunk_ns = time.monotonic_ns()
+                if r.wall_submit_ns is not None:
+                    walls = self.admission.walls
+                    walls.queue_wait_wall_s += (
+                        r.wall_first_chunk_ns - r.wall_submit_ns) / 1e9
+                    walls.queue_waits += 1
             plan.prefill_chunks.append((r.req_id, take))
             plan.prefill_tokens += take
             plan.prefill_attn_tokens += take * (r.prefill_pos + take)
@@ -268,17 +350,23 @@ class EngineCore:
         if hasattr(self.executor, "bind"):
             self.executor.bind(self.kv)   # pool-backed executors attach here
         self.stats = EngineStats()
+        self.walls = WallStats()
         self.clock = 0.0
         # Flight recorder (DESIGN.md §Observability). Default off: no bus
         # is allocated and step() takes the golden-replay code path — every
         # telemetry hook below is behind ``if self.telemetry is not None``.
+        # Over the paged runner the bus also keeps the clock offset that
+        # puts its wall stamps on the profiler's clock, and the trace
+        # export lays them out in place of the sim clock's.
         self.replica_index = 0
         self.replica_role = "replica"
         self.telemetry = None
         if getattr(serving, "telemetry", False):
+            from repro_torch.serving.paged_runner import PagedModelRunner
             from repro_torch.serving.telemetry import TelemetryBus
             self.telemetry = TelemetryBus(
-                capacity=getattr(serving, "telemetry_buffer", 65536))
+                capacity=getattr(serving, "telemetry_buffer", 65536),
+                wall=isinstance(self.executor, PagedModelRunner))
         self._exec_ema = 0.03   # for auto B_xfer sizing
         # Cross-iteration two-stage pipeline (ServingConfig.pipeline): the
         # per-direction transfer channels persist across step() calls and
@@ -298,7 +386,7 @@ class EngineCore:
                               and self.executor.supports_prefix_cache)
         self.admission = AdmissionController(self.kv, self.stats,
                                              serving.block_size,
-                                             self.executor)
+                                             self.executor, self.walls)
         self.batcher = BatchBuilder(serving, self.kv, self.admission)
         self.active: List[Request] = []
         self._pending: List[Tuple[float, int, Request]] = []   # arrival heap
@@ -348,7 +436,8 @@ class EngineCore:
             slo=slo or tier,
             slo_class=slo_class,
             sampling=sp,
-            prompt_ids=prompt_ids)
+            prompt_ids=prompt_ids,
+            wall_submit_ns=time.monotonic_ns())
         return self.submit(req, make_handle=True)
 
     def submit(self, req: Request, *, make_handle: bool = False
@@ -395,8 +484,10 @@ class EngineCore:
         self.executor.drop(req_id)
         r.finish_at(self.clock, reason=FINISH_ABORTED)
         if self.telemetry is not None:
+            now = time.monotonic_ns()
             self.telemetry.span("FINISH", req_id, self.clock, self.clock,
-                                slo_class=r.slo_class, reason=FINISH_ABORTED,
+                                slo_class=r.slo_class, wall=(now, now),
+                                reason=FINISH_ABORTED,
                                 tokens=r.tokens_generated)
         del self._index[req_id]
         self.stats.aborted += 1
@@ -506,6 +597,22 @@ class EngineCore:
                 on_step(out)
         return self.live_request_ids()
 
+    def wall_counters(self) -> Dict[str, float]:
+        """This replica's host wall-clock counters, flat and cumulative:
+        the steps' phases and the requests' waits (``WallStats``), the
+        runner's sync (``sync_wall_s``), the store's readbacks and stacks
+        (``readback_wall_s``, ``kv_stack_wall_s``) and DuplexKV's eager
+        demotion (``eager_d2h_rows``, ``eager_d2h_wall_s``). An executor
+        or store without a counter leaves it out. Observability only."""
+        out = {k: float(v) for k, v in dataclasses.asdict(self.walls).items()}
+        store = getattr(self.executor, "store", None)
+        for obj, names in ((self.executor, ("sync_wall_s",)),
+                           (store, ("readback_wall_s", "kv_stack_wall_s")),
+                           (self.kv, ("eager_d2h_rows", "eager_d2h_wall_s"))):
+            out.update({n: float(getattr(obj, n)) for n in names
+                        if hasattr(obj, n)})
+        return out
+
     def live_request_ids(self) -> List[int]:
         """req_ids still pending or active (not finished/aborted), sorted."""
         return sorted(self._index)
@@ -514,12 +621,22 @@ class EngineCore:
     def step(self) -> IterationOutcome:
         """Run exactly one engine iteration at the current clock."""
         t = self.clock
-        self._ingest(t)
-        if not self.active:
+        if not self.active and not (self._pending
+                                    and self._pending[0][0] <= t):
             if self._pending:   # idle: jump to the next arrival
                 self.clock = self._pending[0][0]
             self._pipe_warm = False   # pipeline drains across an idle gap
             return IterationOutcome(t_start=t, t_end=self.clock, idle=True)
+        walls = StepWalls()
+        try:
+            return self._iterate(t, walls)
+        finally:
+            walls.close()
+
+    def _iterate(self, t: float, walls: StepWalls) -> IterationOutcome:
+        """The non-idle step at clock ``t``; ``walls`` takes a reading at
+        each phase boundary."""
+        self._ingest(t)
 
         # -- schedule --------------------------------------------------------
         bs = self.serving.block_size
@@ -562,6 +679,7 @@ class EngineCore:
                     if r.state == RequestState.RUNNING]
 
         # -- execute + transfer (pipelined or serial) -----------------------
+        walls.next("kv_plan")
         exec_s = self.executor.step_time(plan)
         # pipelined mode: the batch's read/write pool rows are known before
         # transfers stage, so eager demotion can avoid rows the kernels
@@ -656,6 +774,7 @@ class EngineCore:
         # guard — carried eager D2H may only RACE reads) and dispatches
         # through execute_async: every launch enqueues without a host sync
         # and wait() is the iteration's single sync point.
+        walls.next("execute")
         if self._pipeline:
             self.kv.table.set_compute_rows(*plan_rows)
             try:
@@ -664,6 +783,7 @@ class EngineCore:
                 self.kv.table.clear_compute_rows()
         else:
             result = self.executor.execute(plan, self._index)
+        walls.next("commit")
 
         new_count: Dict[int, int] = {}        # req_id -> tokens this iter
         new_ids: Dict[int, List[int]] = {}    # req_id -> their ids (real mode)
@@ -715,9 +835,12 @@ class EngineCore:
                                  new_ids.get(r.req_id))
                    for r in self.active if r.req_id in new_count]
         self.collector.dispatch(outputs)
+        walls.end()
+        self.walls.add_step(walls.ns)
         if self.telemetry is not None:
             self._record_telemetry(t, adm, plan, xfers, eager_d2h,
-                                   admitted, resumed, finished, tel_w)
+                                   admitted, resumed, finished, tel_w,
+                                   walls.ns)
         for rid in finished:
             self._index.pop(rid, None)
         self.active = [r for r in self.active
@@ -732,13 +855,19 @@ class EngineCore:
     def _record_telemetry(self, t: float, adm: AdmissionOutcome,
                           plan: BatchPlan, xfers, eager_d2h: float,
                           admitted: List[int], resumed: List[int],
-                          finished: List[int], w: Dict[str, float]) -> None:
+                          finished: List[int], w: Dict[str, float],
+                          ns: Sequence[int]) -> None:
         """Record this iteration on the flight recorder: one EngineEvent
         (execution + per-direction channel windows) plus the request
         lifecycle spans it produced. Called only when the bus exists;
-        append-only side records — nothing here feeds back into the sim."""
+        append-only side records — nothing here feeds back into the sim.
+        ``ns`` are the step's phase-boundary readings (``StepWalls``): the
+        wall stamps of the event and of the spans (a request's own for
+        ADMIT; the kv_plan phase for the rotations, whose rows move there;
+        the execute phase for PREFILL and DECODE)."""
         from repro_torch.core.vlt import vlt
         tel = self.telemetry
+        kv_plan, execute = (ns[1], ns[2]), (ns[2], ns[3])
         bb = self.kv.block_bytes
         eager_bytes = xfers.eager_stats.d2h_bytes if xfers.eager_stats else 0
         d2h_busy = xfers.stats.d2h_time + eager_d2h
@@ -751,6 +880,9 @@ class EngineCore:
             sched_s=self.executor.plan_time(plan),
             overlap_s=w["overlap"], stall_s=w["stall"],
             plan_hidden_s=w["hidden"],
+            wall_start_ns=ns[0], wall_end_ns=ns[-1],
+            **{f"{phase}_wall_s": (b - a) / 1e9
+               for phase, a, b in zip(PHASES, ns, ns[1:])},
             attrs=dict(
                 decode_reqs=len(plan.decode_reqs),
                 prefill_chunks=len(plan.prefill_chunks),
@@ -766,36 +898,40 @@ class EngineCore:
         admitted_set = set(admitted)
         for r in adm.started:
             if r.req_id in admitted_set:
+                wall = (r.wall_submit_ns, r.wall_first_chunk_ns)
                 tel.span("ADMIT", r.req_id, r.arrival_time, t,
                          slo_class=r.slo_class,
+                         wall=None if None in wall else wall,
                          queue_wait_s=t - r.arrival_time)
         for rid, take in plan.prefill_chunks:
             r = self._by_id(rid)
             if r is not None:
                 tel.span("PREFILL", rid, w["exec_start"],
                          w["exec_start"] + w["exec_dur"],
-                         slo_class=r.slo_class, tokens=take,
+                         slo_class=r.slo_class, wall=execute, tokens=take,
                          pos=r.prefill_pos)
         for rid in plan.decode_reqs:
             r = self._by_id(rid)
             if r is not None:
                 tel.span("DECODE", rid, w["exec_start"],
                          w["exec_start"] + w["exec_dur"],
-                         slo_class=r.slo_class,
+                         slo_class=r.slo_class, wall=execute,
                          tokens_generated=r.tokens_generated)
         for rid in adm.preempt_ids:
             r = self._by_id(rid)
             if r is not None:
                 tel.span("ROTATE_OUT", rid, w["d2h_start"],
                          w["d2h_start"] + d2h_busy,
-                         slo_class=r.slo_class, direction="d2h",
+                         slo_class=r.slo_class, wall=kv_plan,
+                         direction="d2h",
                          bytes=len(self.kv.table.blocks_of(rid)) * bb)
         for rid in resumed:
             r = self._by_id(rid)
             if r is not None:
                 tel.span("ROTATE_IN", rid, w["h2d_start"],
                          w["h2d_start"] + h2d_busy,
-                         slo_class=r.slo_class, direction="h2d",
+                         slo_class=r.slo_class, wall=kv_plan,
+                         direction="h2d",
                          bytes=len(self.kv.table.blocks_of(rid)) * bb)
         for rid in finished:
             r = self._by_id(rid)
@@ -807,7 +943,8 @@ class EngineCore:
                 if bd is not None:
                     attrs.update(bd)
                 tel.span("FINISH", rid, self.clock, self.clock,
-                         slo_class=r.slo_class, **attrs)
+                         slo_class=r.slo_class, wall=(ns[-1], ns[-1]),
+                         **attrs)
 
     # ------------------------------------------------------------------ utils
     def _plan_rows(self, plan: BatchPlan) -> Tuple[Set[int], Set[int]]:

@@ -298,21 +298,23 @@ class DisaggCluster:
 
     def _migrate(self, r: Request, src: EngineCore,
                  dst: EngineCore) -> MigrationRecord:
+        w0 = time.monotonic_ns()
         rec = self.migrator.migrate(r.req_id, src.kv, dst.kv, src.clock)
+        wall = (w0, time.monotonic_ns())
         src.detach_request(r.req_id)
         r.begin_migration()
         dst.adopt_request(r, arrival_time=rec.t_ready)
         if src.telemetry is not None:
             src.telemetry.span(
                 "MIGRATE", r.req_id, rec.t_start, rec.t_ready,
-                slo_class=r.slo_class, direction="d2h",
+                slo_class=r.slo_class, wall=wall, direction="d2h",
                 bytes=rec.nbytes, d2h_bytes=rec.d2h_bytes,
                 blocks=rec.blocks, dst_replica=dst.replica_index,
                 shared_on_target=rec.shared_on_target)
         if dst.telemetry is not None:
             dst.telemetry.span(
                 "MIGRATE", r.req_id, rec.t_start, rec.t_ready,
-                slo_class=r.slo_class, direction="h2d",
+                slo_class=r.slo_class, wall=wall, direction="h2d",
                 bytes=rec.nbytes, blocks=rec.blocks,
                 src_replica=src.replica_index)
         handle = src.collector.detach(r.req_id)

@@ -185,9 +185,14 @@ class PagedKVStore:
         self.h2d_rows = 0
         # wall-clock seconds spent in row movement on the host (launches,
         # uploads, readbacks). Observability only — never fed back into the
-        # sim clock, which stays the model's timing authority.
+        # sim clock, which stays the model's timing authority. Of them,
+        # ``readback_wall_s`` (in ``copy_launch_wall_s``) copies rows back
+        # to the host tier, ``kv_stack_wall_s`` (in
+        # ``upload_launch_wall_s``) stacks host rows before an upload.
         self.copy_launch_wall_s = 0.0
         self.upload_launch_wall_s = 0.0
+        self.readback_wall_s = 0.0
+        self.kv_stack_wall_s = 0.0
 
     @property
     def pool(self) -> torch.Tensor:
@@ -277,19 +282,24 @@ class PagedKVStore:
         device — in double-buffer mode this is deferred one chunk so the
         next gather launch is already queued."""
         n = len(chunk)
-        t0 = time.perf_counter()
         k = self.kv_shards
-        data = self._join([p[base:base + n] for p in self.pools[:k]],
-                          -2).cpu()
-        if self.quantized:
-            sdata = self._join([sc[base:base + n]
-                                for sc in self.scale_shards[:k]], -1).cpu()
-            for j, d in enumerate(chunk):
-                self.host[d.dst_slot] = (data[j].clone(), sdata[j].clone())
-        else:
-            for j, d in enumerate(chunk):
-                self.host[d.dst_slot] = data[j].clone()
-        self.copy_launch_wall_s += time.perf_counter() - t0
+        with record_function("superinfer.kv_readback"):
+            t0 = time.perf_counter()
+            data = self._join([p[base:base + n] for p in self.pools[:k]],
+                              -2).cpu()
+            if self.quantized:
+                sdata = self._join([sc[base:base + n]
+                                    for sc in self.scale_shards[:k]],
+                                   -1).cpu()
+                for j, d in enumerate(chunk):
+                    self.host[d.dst_slot] = (data[j].clone(),
+                                             sdata[j].clone())
+            else:
+                for j, d in enumerate(chunk):
+                    self.host[d.dst_slot] = data[j].clone()
+            dt = time.perf_counter() - t0
+        self.copy_launch_wall_s += dt
+        self.readback_wall_s += dt
         self.d2h_rows += n
 
     def run_d2h(self, descs) -> None:
@@ -332,11 +342,17 @@ class PagedKVStore:
             t0 = time.perf_counter()
             base = self.h2d_base
             with record_function("superinfer.kv_upload"):
+                with record_function("superinfer.kv_stack"):
+                    s0 = time.perf_counter()
+                    if self.quantized:
+                        stacked = (torch.stack([r[0] for r in rows]),
+                                   torch.stack([r[1] for r in rows]))
+                    else:
+                        stacked = (torch.stack(rows),)
+                    self.kv_stack_wall_s += time.perf_counter() - s0
+                vals = self._upload(stacked[0])
                 if self.quantized:
-                    vals = self._upload(torch.stack([r[0] for r in rows]))
-                    svals = self._upload(torch.stack([r[1] for r in rows]))
-                else:
-                    vals = self._upload(torch.stack(rows))
+                    svals = self._upload(stacked[1])
                 for i, (pool, scales) in enumerate(zip(self.pools,
                                                        self.scale_shards)):
                     pool[base:base + n].copy_(self._split(vals[i], i, -2))
@@ -441,10 +457,12 @@ class PagedModelRunner(Executor):
         self.decode_tokens = 0
         self.attn_launches = 0
         self.prefill_chunks_run = 0
-        # host-side dispatch wall time per launch family (observability
+        # host-side dispatch wall time per launch family, and the host
+        # blocked on the device in the iteration's one sync (observability
         # only; the sim clock never reads these)
         self.prefill_launch_wall_s = 0.0
         self.decode_launch_wall_s = 0.0
+        self.sync_wall_s = 0.0
 
     # ------------------------------------------------------------- binding
     def bind(self, kv) -> None:
@@ -498,7 +516,10 @@ class PagedModelRunner(Executor):
             out = ExecutionResult()
             if not outs:
                 return out
-            vals = torch.cat([t[:len(ids)] for ids, t in outs]).cpu()
+            with record_function("superinfer.sync"):
+                t0 = time.perf_counter()
+                vals = torch.cat([t[:len(ids)] for ids, t in outs]).cpu()
+                self.sync_wall_s += time.perf_counter() - t0
             rids = [rid for ids, _ in outs for rid in ids]
             for rid, (tok, margin) in zip(rids, vals.tolist()):
                 out.tokens[rid] = int(tok)

@@ -6,11 +6,16 @@ Three pieces, all stdlib-only:
   ``Span``s (ADMIT, PREFILL, DECODE, ROTATE_OUT, ROTATE_IN, MIGRATE,
   FINISH) and per-iteration ``EngineEvent``s (batch composition, VLT
   slack, HBM headroom, per-direction transfer-channel windows, pipeline
-  overlap/stall). All timestamps are SIM-CLOCK seconds — the same clock
-  every SLO number is computed on — so the trace is exact, not sampled.
-  The bus is default OFF (``ServingConfig.telemetry=False``): no bus is
-  allocated and the engine's step loop takes the byte-identical
-  golden-replay code path.
+  overlap/stall). ``t_*``/``*_start`` are SIM-CLOCK seconds — the same
+  clock every SLO number is computed on — so the trace is exact, not
+  sampled. ``wall_*_ns`` are the same intervals on the host's wall clock
+  (``time.monotonic_ns``), from the engine's own phase readings; a bus
+  made with ``wall=True`` (the engine over the paged runner) keeps the
+  offset that puts them on ``torch.profiler``'s clock
+  (``wall_offset_ns``), and its trace export lays them out in place of
+  the sim clock's. The bus is default OFF
+  (``ServingConfig.telemetry=False``): no bus is allocated and the
+  engine's step loop takes the byte-identical golden-replay code path.
 
 * ``StructuredLogger`` / ``log_event`` — the single JSON-lines emitter
   shared by the HTTP server, the launcher supervisor and ``serve.py``:
@@ -46,10 +51,30 @@ SPAN_FINISH = "FINISH"          # terminal marker (reason, token count)
 SPAN_KINDS = (SPAN_ADMIT, SPAN_PREFILL, SPAN_DECODE, SPAN_ROTATE_OUT,
               SPAN_ROTATE_IN, SPAN_MIGRATE, SPAN_FINISH)
 
+# the phases of a non-idle engine step, in order (EngineEvent.<phase>_wall_s)
+PHASES = ("schedule", "kv_plan", "execute", "commit")
+
+
+def profiler_clock_offset_ns() -> int:
+    """Nanoseconds to add to a ``time.monotonic_ns()`` reading to put it on
+    ``torch.profiler``'s host clock, which stamps its events
+    (``start_ns()`` of ``kineto_results.events()``) in Unix-epoch
+    nanoseconds: ``time.time_ns()`` against the middle of the tightest of
+    a few monotonic brackets around it."""
+    best = None
+    for _ in range(5):
+        a = time.monotonic_ns()
+        unix = time.time_ns()
+        b = time.monotonic_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, unix - (a + b) // 2)
+    return best[1]
+
 
 @dataclasses.dataclass(frozen=True)
 class Span:
-    """One request-lifecycle interval, stamped with sim-clock start/end."""
+    """One request-lifecycle interval, stamped with sim-clock start/end and,
+    where the engine read it, wall start/end (``time.monotonic_ns``)."""
     kind: str
     req_id: int
     t_start: float
@@ -57,6 +82,8 @@ class Span:
     replica: int = 0
     slo_class: str = "standard"
     attrs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    wall_start_ns: Optional[int] = None
+    wall_end_ns: Optional[int] = None
 
     def row(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
@@ -73,7 +100,9 @@ class EngineEvent:
     this iteration (matching ``EngineStats.overlap_ms`` accounting, minus
     the pipelined plan-hiding component recorded separately in
     ``plan_hidden_s``) and ``stall_s`` the serialization the pipeline could
-    not hide.
+    not hide. ``wall_start_ns``/``wall_end_ns`` are the step's first and
+    last wall readings (``time.monotonic_ns``) and ``<phase>_wall_s`` the
+    phases between them, in order (``PHASES``).
     """
     replica: int
     iteration: int
@@ -90,6 +119,12 @@ class EngineEvent:
     stall_s: float = 0.0
     plan_hidden_s: float = 0.0
     attrs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    wall_start_ns: Optional[int] = None
+    wall_end_ns: Optional[int] = None
+    schedule_wall_s: float = 0.0
+    kv_plan_wall_s: float = 0.0
+    execute_wall_s: float = 0.0
+    commit_wall_s: float = 0.0
 
     def row(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
@@ -108,10 +143,11 @@ class TelemetryBus:
     """
 
     def __init__(self, capacity: int = 65536, replica: int = 0,
-                 role: str = "replica"):
+                 role: str = "replica", wall: bool = False):
         self.capacity = int(capacity)
         self.replica = int(replica)
         self.role = role
+        self.wall_offset_ns = profiler_clock_offset_ns() if wall else None
         self.spans: deque = deque(maxlen=self.capacity)
         self.events: deque = deque(maxlen=self.capacity)
         self.spans_dropped = 0
@@ -121,13 +157,17 @@ class TelemetryBus:
 
     # -- recording ----------------------------------------------------------
     def span(self, kind: str, req_id: int, t_start: float, t_end: float,
-             slo_class: str = "standard", **attrs) -> None:
+             slo_class: str = "standard",
+             wall: Optional[Sequence[int]] = None, **attrs) -> None:
+        """``wall``: the span's (start, end) wall readings, if any."""
         if len(self.spans) == self.capacity:
             self.spans_dropped += 1
         self.spans_recorded += 1
+        w0, w1 = wall if wall is not None else (None, None)
         self.spans.append(Span(kind=kind, req_id=req_id, t_start=t_start,
                                t_end=t_end, replica=self.replica,
-                               slo_class=slo_class, attrs=attrs))
+                               slo_class=slo_class, attrs=attrs,
+                               wall_start_ns=w0, wall_end_ns=w1))
 
     def event(self, **kw) -> None:
         if len(self.events) == self.capacity:

@@ -17,20 +17,40 @@ Timestamps are SIM-CLOCK microseconds (the engine's float seconds
 recomputes channel overlap geometrically from the exported slices so
 tests and CI can assert the trace agrees with the engine's own
 ``overlap_ms`` accounting.
+
+A bus that keeps a wall clock (``TelemetryBus.wall_offset_ns``: the engine
+over the paged runner) is laid out on the wall instead, in Unix-epoch
+microseconds, ``torch.profiler``'s host clock: two engine tracks, ``tid``
+4 one slice a step and 5 its phases (``schedule``, ``kv_plan``,
+``execute``, ``commit``), and the request tracks with each span's wall
+stamps (ADMIT from submission to the plan of the first prefill chunk,
+PREFILL/DECODE the execute phase, ROTATE_* the kv_plan phase, where the
+rows move). The slices then line up with the ``superinfer.*`` ranges of a
+profiler trace of the same process, whose ``ts`` count from its
+``baseTimeNanoseconds``.
 """
 import json
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+
+from repro_torch.serving.telemetry import PHASES
 
 TRACK_SCHED = 0
 TRACK_COMPUTE = 1
 TRACK_D2H = 2
 TRACK_H2D = 3
+TRACK_STEP = 4          # the wall layout's tracks
+TRACK_PHASES = 5
 REQ_TRACK_BASE = 16     # request lifecycle tracks start here (16 + req_id)
 
 _TRACK_NAMES = {TRACK_SCHED: "scheduler", TRACK_COMPUTE: "compute",
                 TRACK_D2H: "D2H", TRACK_H2D: "H2D"}
+_WALL_TRACK_NAMES = {TRACK_STEP: "engine step (wall)",
+                     TRACK_PHASES: "step phases (wall)"}
 
 _US = 1e6               # sim seconds -> trace microseconds
+SIM_CLOCK = "sim-seconds*1e6"
+WALL_CLOCK = ("unix-epoch-us: torch.profiler's host clock (a profiler "
+              "trace's ts + baseTimeNanoseconds/1e3)")
 
 
 def _meta(pid: int, tid: Optional[int], name: str, what: str) -> Dict:
@@ -49,44 +69,86 @@ def _slice(pid: int, tid: int, name: str, t_start: float, dur_s: float,
             "args": dict(args or {})}
 
 
+def _sim_steps(bus, pid: int) -> List[Dict]:
+    """The scheduler, compute and per-direction channel slices of each
+    step, on the sim clock."""
+    out: List[Dict] = []
+    for e in bus.events:
+        it = e.iteration
+        args = {"iteration": it, "overlap_s": e.overlap_s,
+                "stall_s": e.stall_s, "plan_hidden_s": e.plan_hidden_s}
+        args.update(e.attrs)
+        if e.sched_s > 0:
+            out.append(_slice(pid, TRACK_SCHED, f"plan#{it}",
+                              e.t_start, e.sched_s, {"iteration": it}))
+        if e.exec_s > 0:
+            nd = e.attrs.get("decode_reqs", 0)
+            np_ = e.attrs.get("prefill_chunks", 0)
+            out.append(_slice(pid, TRACK_COMPUTE, f"exec#{it} d{nd} p{np_}",
+                              e.exec_start, e.exec_s, args))
+        if e.d2h_s > 0:
+            out.append(_slice(
+                pid, TRACK_D2H, f"d2h#{it}", e.d2h_start, e.d2h_s,
+                {"iteration": it,
+                 "bytes": e.attrs.get("d2h_bytes", 0)}))
+        if e.h2d_s > 0:
+            out.append(_slice(
+                pid, TRACK_H2D, f"h2d#{it}", e.h2d_start, e.h2d_s,
+                {"iteration": it,
+                 "bytes": e.attrs.get("h2d_bytes", 0)}))
+    return out
+
+
+def _wall_steps(bus, pid: int) -> List[Dict]:
+    """One slice a step and one a phase, on the profiler's clock."""
+    out: List[Dict] = []
+    for e in bus.events:
+        if e.wall_start_ns is None:
+            continue
+        it = e.iteration
+        args = {"iteration": it}
+        args.update(e.attrs)
+        out.append(_slice(pid, TRACK_STEP, f"step#{it}",
+                          _wall_s(bus, e.wall_start_ns),
+                          (e.wall_end_ns - e.wall_start_ns) / 1e9, args))
+        t = e.wall_start_ns
+        for phase in PHASES:
+            d = getattr(e, f"{phase}_wall_s")
+            out.append(_slice(pid, TRACK_PHASES, f"{phase}#{it}",
+                              _wall_s(bus, t), d, {"iteration": it}))
+            t += round(d * 1e9)
+    return out
+
+
+def _wall_s(bus, ns: int) -> float:
+    """A bus's wall reading in Unix-epoch seconds (the profiler's clock)."""
+    return (ns + bus.wall_offset_ns) / 1e9
+
+
 def trace_events(buses: Iterable) -> List[Dict]:
     """Flatten telemetry buses into a Chrome-trace event list."""
     events: List[Dict] = []
     req_tracks: Dict[Tuple[int, int], None] = {}
     for bus in buses:
         pid = bus.replica
+        wall = bus.wall_offset_ns is not None
         events.append(_meta(pid, None, f"replica{pid} ({bus.role})",
                             "process_name"))
         events.append(_meta(pid, None, str(pid), "process_sort_index"))
-        for tid, name in _TRACK_NAMES.items():
+        for tid, name in (_WALL_TRACK_NAMES if wall
+                          else _TRACK_NAMES).items():
             events.append(_meta(pid, tid, name, "thread_name"))
             events.append(_meta(pid, tid, str(tid), "thread_sort_index"))
-        for e in bus.events:
-            it = e.iteration
-            args = {"iteration": it, "overlap_s": e.overlap_s,
-                    "stall_s": e.stall_s, "plan_hidden_s": e.plan_hidden_s}
-            args.update(e.attrs)
-            if e.sched_s > 0:
-                events.append(_slice(pid, TRACK_SCHED, f"plan#{it}",
-                                     e.t_start, e.sched_s,
-                                     {"iteration": it}))
-            if e.exec_s > 0:
-                nd = e.attrs.get("decode_reqs", 0)
-                np_ = e.attrs.get("prefill_chunks", 0)
-                events.append(_slice(pid, TRACK_COMPUTE,
-                                     f"exec#{it} d{nd} p{np_}",
-                                     e.exec_start, e.exec_s, args))
-            if e.d2h_s > 0:
-                events.append(_slice(
-                    pid, TRACK_D2H, f"d2h#{it}", e.d2h_start, e.d2h_s,
-                    {"iteration": it,
-                     "bytes": e.attrs.get("d2h_bytes", 0)}))
-            if e.h2d_s > 0:
-                events.append(_slice(
-                    pid, TRACK_H2D, f"h2d#{it}", e.h2d_start, e.h2d_s,
-                    {"iteration": it,
-                     "bytes": e.attrs.get("h2d_bytes", 0)}))
+        events.extend(_wall_steps(bus, pid) if wall
+                      else _sim_steps(bus, pid))
         for s in bus.spans:
+            if not wall:
+                t0, t1 = s.t_start, s.t_end
+            elif s.wall_start_ns is None:
+                continue
+            else:
+                t0 = _wall_s(bus, s.wall_start_ns)
+                t1 = _wall_s(bus, s.wall_end_ns)
             tid = REQ_TRACK_BASE + s.req_id
             if (pid, tid) not in req_tracks:
                 req_tracks[(pid, tid)] = None
@@ -97,24 +159,28 @@ def trace_events(buses: Iterable) -> List[Dict]:
                                     "thread_sort_index"))
             args = {"req_id": s.req_id, "slo_class": s.slo_class}
             args.update(s.attrs)
-            if s.t_end > s.t_start:
-                events.append(_slice(pid, tid, s.kind, s.t_start,
-                                     s.t_end - s.t_start, args))
+            if t1 > t0:
+                events.append(_slice(pid, tid, s.kind, t0, t1 - t0, args))
             else:
                 events.append({"ph": "i", "pid": pid, "tid": tid,
-                               "name": s.kind, "ts": s.t_start * _US,
+                               "name": s.kind, "ts": t0 * _US,
                                "s": "t", "cat": "request", "args": args})
     return events
 
 
 def export_trace(buses: Iterable) -> Dict[str, Any]:
-    """Assemble the full Chrome-trace document from telemetry buses."""
+    """Assemble the full Chrome-trace document from telemetry buses; its
+    ``otherData.clock`` names the clock (one a replica where they
+    differ)."""
     buses = list(buses)
+    clocks = {str(b.replica): SIM_CLOCK if b.wall_offset_ns is None
+              else WALL_CLOCK for b in buses}
     return {
         "traceEvents": trace_events(buses),
         "displayTimeUnit": "ms",
         "otherData": {
-            "clock": "sim-seconds*1e6",
+            "clock": (clocks if len(set(clocks.values())) > 1
+                      else next(iter(clocks.values()), SIM_CLOCK)),
             "replicas": len(buses),
             "counters": {str(b.replica): b.counters() for b in buses},
         },
